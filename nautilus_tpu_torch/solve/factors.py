@@ -1,0 +1,471 @@
+"""Residual factors + Gauss-Newton normal equations in block-band form
+(port of nautilus_tpu/solve/factors.py, band path).
+
+Residuals (same semantics as the JAX package):
+- odometry: world-frame translation delta plus wrapped rotation delta,
+  scaled by the translation/rotation weights;
+- normal: the source point moved into the target frame, projected onto the
+  target normal and onto the (unrotated) source normal;
+- point: plain 2D point difference in the target frame.
+
+Assembly writes H = J^T J and g = J^T r straight into the block band (3x3
+blocks, half-bandwidth w) that solve/band.py factors.  Correspondence
+factors accumulate by the delta-major pair order as contiguous slice adds;
+odometry (and in-band loop closures) scatter into the band; long-range
+loop closures become Woodbury columns U with H_lr = U U^T.
+
+``analytic="moments"`` (the solver's default) reduces J^T J and J^T r of
+the correspondence factors to per-point scalar sums without forming J;
+``analytic=True`` forms the closed-form J and contracts it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from nautilus_tpu_torch.core import geometry as geo
+
+
+class OdomFactors(NamedTuple):
+    """[F] odometry-style factors with per-factor weights."""
+
+    i: torch.Tensor        # [F] int64
+    j: torch.Tensor        # [F] int64
+    trans: torch.Tensor    # [F, 2] world-frame translation i -> j
+    rot: torch.Tensor      # [F]
+    mask: torch.Tensor     # [F] bool
+    wt: torch.Tensor       # [F] translation weight
+    wr: torch.Tensor       # [F] rotation weight
+
+    @property
+    def count(self):
+        return self.i.shape[0]
+
+
+def make_odom_factors(i, j, trans, rot, tw, rw, device,
+                      dtype=torch.float32) -> OdomFactors:
+    """Factors from host arrays; tw/rw are scalars or per-factor arrays."""
+    i = torch.as_tensor(i, dtype=torch.int64, device=device).reshape(-1)
+    f = i.shape[0]
+    full = lambda v: torch.as_tensor(v, dtype=dtype, device=device).expand(f)
+    return OdomFactors(
+        i=i, j=torch.as_tensor(j, dtype=torch.int64, device=device).reshape(-1),
+        trans=torch.as_tensor(trans, dtype=dtype, device=device).reshape(f, 2),
+        rot=torch.as_tensor(rot, dtype=dtype, device=device).reshape(f),
+        mask=torch.ones((f,), dtype=torch.bool, device=device),
+        wt=full(tw).clone(), wr=full(rw).clone())
+
+
+class Correspondences(NamedTuple):
+    """[Q, S] point matches between pose pairs (one row per pair)."""
+
+    src: torch.Tensor       # [Q] source node index
+    tgt: torch.Tensor       # [Q] target node index
+    src_pts: torch.Tensor   # [Q, S, 2] in the source scan frame
+    tgt_pts: torch.Tensor   # [Q, S, 2] in the target scan frame
+    src_nrm: torch.Tensor   # [Q, S, 2]
+    tgt_nrm: torch.Tensor   # [Q, S, 2]
+    mask: torch.Tensor      # [Q, S] bool (slot and pair validity)
+
+
+class FactorGraph(NamedTuple):
+    odom: OdomFactors
+    planar: Correspondences   # -> normal residuals
+    edge: Correspondences     # -> point residuals
+
+
+class BandedSystem(NamedTuple):
+    """Normal equations in block-band form (solve/band.py)."""
+
+    diag: torch.Tensor             # [N, 3, 3] block (i, i)
+    band: torch.Tensor             # [w, N, 3, 3] band[d-1][i] = block (i, i-d)
+    g: torch.Tensor                # [N, 3]
+    U: Optional[torch.Tensor] = None   # [3N, R] long-range Woodbury columns
+
+    @property
+    def n(self):
+        return self.diag.shape[0]
+
+    @property
+    def w(self):
+        return self.band.shape[0]
+
+    @property
+    def rank_lr(self):
+        return 0 if self.U is None else self.U.shape[1]
+
+
+# ---------------------------------------------------------------------------
+# Residuals and cost
+# ---------------------------------------------------------------------------
+
+def odom_residual(pose_i, pose_j, trans, rot, mask, tw, rw):
+    """[F, 3] weighted odometry residuals."""
+    et = pose_i[:, :2] + trans - pose_j[:, :2]
+    dr = pose_i[:, 2] + rot - pose_j[:, 2]
+    er = torch.atan2(torch.sin(dr), torch.cos(dr))
+    m = mask.to(pose_i.dtype)
+    return torch.stack([tw * et[:, 0], tw * et[:, 1], rw * er], dim=-1) \
+        * m[:, None]
+
+
+def normal_residual(pose_s, pose_t, src_pts, tgt_pts, src_nrm, tgt_nrm,
+                    mask):
+    """[Q, S, 2] signed point-to-plane residuals."""
+    p_t = geo.relative_pose_transform_points(pose_s[:, None], pose_t[:, None],
+                                             src_pts)
+    diff = p_t - tgt_pts
+    r_tgt = torch.sum(tgt_nrm * diff, dim=-1)
+    r_src = torch.sum(src_nrm * (-diff), dim=-1)
+    m = mask.to(pose_s.dtype)
+    return torch.stack([r_tgt * m, r_src * m], dim=-1)
+
+
+def point_residual(pose_s, pose_t, src_pts, tgt_pts, mask):
+    """[Q, S, 2] point-difference residuals."""
+    p_t = geo.relative_pose_transform_points(pose_s[:, None], pose_t[:, None],
+                                             src_pts)
+    return (tgt_pts - p_t) * mask[..., None].to(pose_s.dtype)
+
+
+def total_cost(x, graph: FactorGraph):
+    """Ceres-convention total cost: 0.5 * sum of squared residuals."""
+    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    od = graph.odom
+    if od.count:
+        r = odom_residual(x[od.i], x[od.j], od.trans, od.rot, od.mask, od.wt,
+                          od.wr)
+        acc = acc + torch.sum(r * r)
+    pl, ed = graph.planar, graph.edge
+    if pl.src.shape[0]:
+        r = normal_residual(x[pl.src], x[pl.tgt], pl.src_pts, pl.tgt_pts,
+                            pl.src_nrm, pl.tgt_nrm, pl.mask)
+        acc = acc + torch.sum(r * r)
+    if ed.src.shape[0]:
+        r = point_residual(x[ed.src], x[ed.tgt], ed.src_pts, ed.tgt_pts,
+                           ed.mask)
+        acc = acc + torch.sum(r * r)
+    return 0.5 * acc
+
+
+# ---------------------------------------------------------------------------
+# Closed-form linearization
+# ---------------------------------------------------------------------------
+
+def _dof_cols(idx_a, idx_b):
+    k = torch.arange(3, device=idx_a.device)
+    return torch.cat([3 * idx_a[:, None] + k, 3 * idx_b[:, None] + k],
+                     dim=1)                                   # [Q, 6]
+
+
+def _pt_geometry(pose_s, pose_t, src_pts):
+    """Transformed points p_t and the two point-dependent Jacobian columns
+    a3 = R_t^T R'(th_s) p and a6 = [p_t.y, -p_t.x]; the other four columns
+    are per-pair rotation constants (+-R_t^T e_x, +-R_t^T e_y)."""
+    c_s, s_s = torch.cos(pose_s[:, 2:3]), torch.sin(pose_s[:, 2:3])
+    c_t, s_t = torch.cos(pose_t[:, 2:3]), torch.sin(pose_t[:, 2:3])
+    px, py = src_pts[..., 0], src_pts[..., 1]                 # [Q, S]
+    wx = c_s * px - s_s * py + pose_s[:, 0:1]
+    wy = s_s * px + c_s * py + pose_s[:, 1:2]
+    dx, dy = wx - pose_t[:, 0:1], wy - pose_t[:, 1:2]
+    ptx = c_t * dx + s_t * dy
+    pty = -s_t * dx + c_t * dy
+    rpx = -s_s * px - c_s * py          # R'(th_s) p
+    rpy = c_s * px - s_s * py
+    a3x = c_t * rpx + s_t * rpy
+    a3y = -s_t * rpx + c_t * rpy
+    return ptx, pty, a3x, a3y, c_t, s_t
+
+
+def _pt_and_jacobian(pose_s, pose_t, src_pts):
+    """p_t [Q, S, 2] and A = dp_t / d(pose_s, pose_t) [Q, S, 2, 6]."""
+    ptx, pty, a3x, a3y, c_t, s_t = _pt_geometry(pose_s, pose_t, src_pts)
+    one = torch.ones_like(ptx)
+    cols = [
+        torch.stack([c_t * one, -s_t * one], -1),
+        torch.stack([s_t * one, c_t * one], -1),
+        torch.stack([a3x, a3y], -1),
+        torch.stack([-c_t * one, s_t * one], -1),
+        torch.stack([-s_t * one, -c_t * one], -1),
+        torch.stack([pty, -ptx], -1),
+    ]
+    return torch.stack([ptx, pty], -1), torch.stack(cols, dim=-1)
+
+
+def _linearize_point(pose_s, pose_t, src_pts, tgt_pts, mask):
+    """(r [Q, 2S], J [Q, 2S, 6]) of point_residual."""
+    p_t, A = _pt_and_jacobian(pose_s, pose_t, src_pts)
+    m = mask.to(pose_s.dtype)
+    r = (tgt_pts - p_t) * m[..., None]
+    J = -A * m[..., None, None]
+    q, s = src_pts.shape[:2]
+    return r.reshape(q, 2 * s), J.reshape(q, 2 * s, 6)
+
+
+def _linearize_normal(pose_s, pose_t, src_pts, tgt_pts, src_nrm, tgt_nrm,
+                      mask):
+    """(r [Q, 2S], J [Q, 2S, 6]) of normal_residual."""
+    p_t, A = _pt_and_jacobian(pose_s, pose_t, src_pts)
+    m = mask.to(pose_s.dtype)
+    diff = p_t - tgt_pts
+    r_tgt = torch.sum(tgt_nrm * diff, dim=-1) * m
+    r_src = -torch.sum(src_nrm * diff, dim=-1) * m
+    J_tgt = torch.sum(tgt_nrm[..., None] * A, dim=-2) * m[..., None]
+    J_src = -torch.sum(src_nrm[..., None] * A, dim=-2) * m[..., None]
+    q, s = src_pts.shape[:2]
+    r = torch.stack([r_tgt, r_src], dim=-1).reshape(q, 2 * s)
+    J = torch.stack([J_tgt, J_src], dim=-2).reshape(q, 2 * s, 6)
+    return r, J
+
+
+def _linearize_odom(pose_i, pose_j, trans, rot, mask, tw, rw):
+    """(r [F, 3], J [F, 3, 6]) of odom_residual."""
+    r = odom_residual(pose_i, pose_j, trans, rot, mask, tw, rw)
+    m = mask.to(pose_i.dtype)
+    z = torch.zeros_like(tw)
+    rows = torch.stack([
+        torch.stack([tw, z, z, -tw, z, z], -1),
+        torch.stack([z, tw, z, z, -tw, z], -1),
+        torch.stack([z, z, rw, z, z, -rw], -1),
+    ], dim=-2)                                   # [F, 3, 6]
+    return r, rows * m[:, None, None]
+
+
+def _jtj(r, J):
+    """(Hq [Q, 6, 6], gq [Q, 6]) = (J^T J, J^T r)."""
+    return (torch.einsum("qmi,qmj->qij", J, J),
+            torch.einsum("qmi,qm->qi", J, r))
+
+
+# ---------------------------------------------------------------------------
+# Moment form: J^T J and J^T r from per-point scalar sums
+# ---------------------------------------------------------------------------
+
+def _sym6(entries):
+    """[Q, 6, 6] from the upper-triangle dict {(i, j): [Q]}."""
+    rows = [torch.stack([entries[(min(i, j), max(i, j))] for j in range(6)],
+                        dim=-1) for i in range(6)]
+    return torch.stack(rows, dim=-2)
+
+
+def _moments_point(pose_s, pose_t, src_pts, tgt_pts, mask):
+    """(Hq [Q,6,6], gq [Q,6], cost) of point_residual via moments."""
+    ptx, pty, a3x, a3y, c_t, s_t = _pt_geometry(pose_s, pose_t, src_pts)
+    m = mask.to(pose_s.dtype)
+    a6x, a6y = pty, -ptx
+    rx = (tgt_pts[..., 0] - ptx) * m
+    ry = (tgt_pts[..., 1] - pty) * m
+    red = lambda t: torch.sum(t, dim=-1)
+    M0 = red(m)
+    S3x, S3y = red(m * a3x), red(m * a3y)
+    S6x, S6y = red(m * a6x), red(m * a6y)
+    s33 = red(m * (a3x * a3x + a3y * a3y))
+    s36 = red(m * (a3x * a6x + a3y * a6y))
+    s66 = red(m * (a6x * a6x + a6y * a6y))
+    Srx, Sry = red(rx), red(ry)
+    g3r = red(a3x * rx + a3y * ry)
+    g6r = red(a6x * rx + a6y * ry)
+    cost = 0.5 * torch.sum(rx * rx + ry * ry)
+    ct, st = c_t[:, 0], s_t[:, 0]
+    h13 = ct * S3x - st * S3y
+    h23 = st * S3x + ct * S3y
+    h16 = ct * S6x - st * S6y
+    h26 = st * S6x + ct * S6y
+    z = torch.zeros_like(M0)
+    Hq = _sym6({(0, 0): M0, (0, 1): z, (0, 2): h13, (0, 3): -M0,
+                (0, 4): z, (0, 5): h16,
+                (1, 1): M0, (1, 2): h23, (1, 3): z, (1, 4): -M0,
+                (1, 5): h26,
+                (2, 2): s33, (2, 3): -h13, (2, 4): -h23, (2, 5): s36,
+                (3, 3): M0, (3, 4): z, (3, 5): -h16,
+                (4, 4): M0, (4, 5): -h26,
+                (5, 5): s66})
+    g1 = -(ct * Srx - st * Sry)
+    g2 = -(st * Srx + ct * Sry)
+    gq = torch.stack([g1, g2, -g3r, -g1, -g2, -g6r], dim=-1)
+    return Hq, gq, cost
+
+
+def _moments_normal(pose_s, pose_t, src_pts, tgt_pts, src_nrm, tgt_nrm,
+                    mask):
+    """(Hq, gq, cost) of normal_residual via moments: each point gives two
+    rows n^T A = [u, v, w, -u, -v, z] (target and source normal)."""
+    ptx, pty, a3x, a3y, c_t, s_t = _pt_geometry(pose_s, pose_t, src_pts)
+    m = mask.to(pose_s.dtype)
+    dx = ptx - tgt_pts[..., 0]
+    dy = pty - tgt_pts[..., 1]
+    sums = None
+    for nrm in (tgt_nrm, src_nrm):
+        nx, ny = nrm[..., 0], nrm[..., 1]
+        u = nx * c_t - ny * s_t
+        v = nx * s_t + ny * c_t
+        w = nx * a3x + ny * a3y
+        zc = nx * pty - ny * ptx
+        rr = (nx * dx + ny * dy) * m
+        terms = [m * u * u, m * u * v, m * u * w, m * u * zc,
+                 m * v * v, m * v * w, m * v * zc,
+                 m * w * w, m * w * zc, m * zc * zc,
+                 u * rr, v * rr, w * rr, zc * rr, rr * rr]
+        part = [torch.sum(t, dim=-1) for t in terms]
+        sums = part if sums is None else [a + b for a, b in zip(sums, part)]
+    (uu, uv, uw, uz, vv, vw, vz, ww, wz, zz,
+     ur, vr, wr, zr, rr2) = sums
+    Hq = _sym6({(0, 0): uu, (0, 1): uv, (0, 2): uw, (0, 3): -uu,
+                (0, 4): -uv, (0, 5): uz,
+                (1, 1): vv, (1, 2): vw, (1, 3): -uv, (1, 4): -vv,
+                (1, 5): vz,
+                (2, 2): ww, (2, 3): -uw, (2, 4): -vw, (2, 5): wz,
+                (3, 3): uu, (3, 4): uv, (3, 5): -uz,
+                (4, 4): vv, (4, 5): -vz,
+                (5, 5): zz})
+    gq = torch.stack([ur, vr, wr, -ur, -vr, zr], dim=-1)
+    return Hq, gq, 0.5 * torch.sum(rr2)
+
+
+# ---------------------------------------------------------------------------
+# Band assembly
+# ---------------------------------------------------------------------------
+
+class BandLayout(NamedTuple):
+    """The delta-major pair layout (correspond.make_pairs): pairs of delta d
+    occupy rows [offsets()[d-1], offsets()[d]), i = d..n-1 ascending.
+    ``w`` is min(max_window, n - 1)."""
+
+    n: int
+    w: int
+
+    def offsets(self):
+        offs = [0]
+        for d in range(1, self.w + 1):
+            offs.append(offs[-1] + max(self.n - d, 0))
+        return offs
+
+
+def _corr_blocks(x, corr: Correspondences, normal: bool, analytic):
+    """(Hq, gq, cost) of one correspondence batch."""
+    ps, pt = x[corr.src], x[corr.tgt]
+    if normal:
+        data = (corr.src_pts, corr.tgt_pts, corr.src_nrm, corr.tgt_nrm,
+                corr.mask)
+        moments, linearize = _moments_normal, _linearize_normal
+    else:
+        data = (corr.src_pts, corr.tgt_pts, corr.mask)
+        moments, linearize = _moments_point, _linearize_point
+    if analytic == "moments":
+        return moments(ps, pt, *data)
+    if analytic is not True:
+        raise ValueError(f"analytic must be 'moments' or True, got "
+                         f"{analytic!r}")
+    r, J = linearize(ps, pt, *data)
+    Hq, gq = _jtj(r, J)
+    return Hq, gq, 0.5 * torch.sum(r * r)
+
+
+def _accumulate_banded(x, graph: FactorGraph, layout: BandLayout,
+                       analytic="moments"):
+    """Correspondence blocks accumulated into (diag [n,3,3], band [w,n,3,3],
+    gd [n,3], cost) by contiguous slice adds in the delta-major order."""
+    n, w = layout.n, layout.w
+    offs = layout.offsets()
+    dt, dev = x.dtype, x.device
+    diag = torch.zeros((n, 3, 3), dtype=dt, device=dev)
+    band = torch.zeros((w, n, 3, 3), dtype=dt, device=dev)
+    gd = torch.zeros((n, 3), dtype=dt, device=dev)
+    cost = torch.zeros((), dtype=dt, device=dev)
+    for corr, normal in ((graph.planar, True), (graph.edge, False)):
+        if corr.src.shape[0] == 0:
+            continue
+        Hq, gq, c = _corr_blocks(x, corr, normal, analytic)
+        cost = cost + c
+        for d in range(1, w + 1):
+            cnt = n - d
+            s = offs[d - 1]
+            Hd, gqd = Hq[s:s + cnt], gq[s:s + cnt]
+            # Pair rows i = d..n-1 (source) against j = 0..n-1-d (target).
+            diag[d:] += Hd[:, :3, :3]
+            diag[:cnt] += Hd[:, 3:, 3:]
+            band[d - 1, d:] += Hd[:, :3, 3:]
+            gd[d:] += gqd[:, :3]
+            gd[:cnt] += gqd[:, 3:]
+    return diag, band, gd, cost
+
+
+def _scatter_band_factor(lv, gd, cost, x, od: OdomFactors):
+    """Scatter one odometry-style factor batch into the band levels
+    lv [w+1, N, 3, 3] (level 0 = diagonal, level d = block (i, i-d) at row
+    i) and the gradient gd.  Requires |i - j| <= w (the solver checks)."""
+    if od.count == 0:
+        return lv, gd, cost
+    r, J = _linearize_odom(x[od.i], x[od.j], od.trans, od.rot, od.mask,
+                           od.wt, od.wr)
+    Hq, gq = _jtj(r, J)
+    cost = cost + 0.5 * torch.sum(r * r)
+    a, b = od.i, od.j
+    lo = torch.maximum(a, b)
+    delta = torch.abs(a - b)
+    lower = torch.where((a > b)[:, None, None], Hq[:, :3, 3:],
+                        Hq[:, :3, 3:].transpose(1, 2))
+    lower = torch.where((delta > 0)[:, None, None], lower,
+                        torch.zeros_like(lower))
+    zero = torch.zeros_like(a)
+    lv = lv.index_put((zero, a), Hq[:, :3, :3], accumulate=True)
+    lv = lv.index_put((zero, b), Hq[:, 3:, 3:], accumulate=True)
+    lv = lv.index_put((delta, lo), lower, accumulate=True)
+    gd = gd.index_put((a,), gq[:, :3], accumulate=True)
+    gd = gd.index_put((b,), gq[:, 3:], accumulate=True)
+    return lv, gd, cost
+
+
+def lowrank_factor_columns(x, lr: OdomFactors, n: int):
+    """(U [3n, 3K], g_lr [n, 3], cost) of long-range loop-closure factors:
+    each factor's J^T J = (J^T)(J^T)^T, so U holds the 3K columns J^T and
+    H_lr = U U^T exactly."""
+    r, J = _linearize_odom(x[lr.i], x[lr.j], lr.trans, lr.rot, lr.mask,
+                           lr.wt, lr.wr)
+    k = r.shape[0]
+    dev = x.device
+    dof = _dof_cols(lr.i, lr.j)                       # [K, 6]
+    cost = 0.5 * torch.sum(r * r)
+    gq = torch.einsum("kmi,km->ki", J, r)             # [K, 6]
+    g_lr = torch.zeros((3 * n,), dtype=x.dtype, device=dev).index_put(
+        (dof.reshape(-1),), gq.reshape(-1), accumulate=True).reshape(n, 3)
+    cols = 3 * torch.arange(k, device=dev)[:, None] \
+        + torch.arange(3, device=dev)[None, :]        # [K, 3]
+    U = torch.zeros((3 * n, 3 * k), dtype=x.dtype, device=dev).index_put(
+        (dof[:, None, :].expand(k, 3, 6), cols[:, :, None].expand(k, 3, 6)),
+        J, accumulate=True)
+    return U, g_lr, cost
+
+
+def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
+                           analytic="moments", lr: OdomFactors = None):
+    """Normal equations in block-band form: (BandedSystem, cost).
+
+    Every odometry / in-band loop-closure factor must satisfy
+    |i - j| <= layout.w; long-range loop closures go in through ``lr`` as
+    Woodbury columns.
+    """
+    n = layout.n
+    diag, band, gd, cost = _accumulate_banded(x, graph, layout, analytic)
+    lv = torch.cat([diag[None], band])
+    lv, gd, cost = _scatter_band_factor(lv, gd, cost, x, graph.odom)
+    U = None
+    if lr is not None and lr.count:
+        U, g_lr, cost_lr = lowrank_factor_columns(x, lr, n)
+        gd = gd + g_lr
+        cost = cost + cost_lr
+    return BandedSystem(diag=lv[0], band=lv[1:], g=gd, U=U), cost
+
+
+def _band_to_dense(diag, band, layout: BandLayout):
+    """Expand the block band to a dense symmetric [3n, 3n] H (tests)."""
+    n, w = layout.n, layout.w
+    S = torch.stack([band[d] for d in reversed(range(w))] + [0.5 * diag],
+                    dim=1)                                   # [n, w+1, 3, 3]
+    S = torch.nn.functional.pad(S, (0, 0, 0, 0, 0, n - w))   # [n, n+1, 3, 3]
+    flat = S.reshape(n * (n + 1), 3, 3)
+    D = flat[w:w + n * n].reshape(n, n, 3, 3)
+    Dh = D.permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
+    return Dh + Dh.T
