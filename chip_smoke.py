@@ -7,23 +7,41 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the TF32 flags the package turns off;
-2. build: compiles the CSM coarse kernel from kernels/csrc/csm_coarse.cu;
-3. kernel against plain: the kernel and its plain PyTorch version on the
-   same inputs at the benchmark shapes (C=8, and the main path's chunk of
-   PAIR_CHUNK pairs) and at the gdc_2020 scan range, with max abs error,
-   argmax agreement and CUDA-event times;
-4. small-input reference: the port's slice on the card against the same
-   slice on the CPU (the CPU path is held to the JAX package by the tests);
-5. main path: the GDC-scale synthetic (1000 poses, building world, 720
+2. build: compiles both CUDA kernels (kernels/csrc/csm_coarse.cu and
+   csm_correlate.cu), one nvcc each, started together, with nvcc time and
+   ptxas registers and spills;
+3. fused coarse kernel against plain: the kernel and its plain PyTorch
+   version on the same inputs at the benchmark shapes (C=8, and the main
+   path's chunk of PAIR_CHUNK pairs) and at the gdc_2020 scan range, with
+   max abs error, argmax agreement and CUDA-event times;
+4. correlation kernel against plain: the same at the pair engine's shapes
+   (reference params, bench.py's 12 m range, gdc_2020's 8.5 m range, a
+   batch of PAIR_BATCH pairs) with rasters of rotated points, and a table
+   too large for shared memory with integer values, which must agree bit
+   for bit;
+5. small-input reference: the port's slice (solve, auto-LC, one HITL step)
+   on the card against the same slice on the CPU (the CPU path is held to
+   the JAX package by the tests);
+6. main path: the GDC-scale synthetic (1000 poses, building world, 720
    beams, seed 1) through solve_slam -> solve_auto_lc(apply=True) ->
-   write_poses, counting kernel launches.
+   write_poses, counting fused coarse kernel launches;
+7. pair engine: bench.py's scan-matching leg (64 pairs (i, i+1) at the
+   reference params and at 12 m, both engines, pairs/s best of 3), then the
+   main path's window-expanded gated pairs through engine="pair" against
+   the stage engine, counting correlation kernel launches;
+8. HITL: bench.py's scripted colinearity constraint on the closed map
+   through the CLI's apply_hitl_line (two solves), with poses selected per
+   line, per-window costs and the HITL residual cost.
 
-Exits non-zero on any failure.  The last line is one JSON object
+Each path (6, 7, 8) starts with every launch count at 0 and reads them when
+it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
-power limit, and the one before that the kernels' JSON record (times at the
-main path's shapes, the largest error over every case).
+power limit, and the one before that the kernels' JSON record (launches on
+their path, times at the main path's shapes, the largest error over every
+case).
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,6 +57,9 @@ RTOL, ATOL = 1e-5, 1e-4
 # Card-vs-CPU slice tolerance on poses: float32 reduction order and the
 # transcendental functions' last bits differ between the two devices.
 POSE_ATOL = 1e-3
+# bench.py's scripted curation message on the GDC-scale building.
+HITL_WIDTH = 0.3
+HITL_LINES = ((-19, -15), (19, -15), (-19, -14.5), (19, -14.5))
 BENCH_R05 = {"candidates": 22, "gated": 49, "accepted": 27,
              "final_cost": 92.4868, "ate_odometry": 0.3303,
              "ate_solved": 0.5621, "ate_closed": 0.1182}
@@ -72,6 +93,32 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def agreement(out_k, out_p):
+    """(max abs err, allclose at RTOL/ATOL, argmax equal beyond ties in
+    every row, rows with equal argmax) of a kernel's output against its
+    plain version's, rows along the leading dim."""
+    import torch
+    err = float((out_k - out_p).abs().max())
+    close = bool(torch.allclose(out_k, out_p, rtol=RTOL, atol=ATOL))
+    fk, fp = out_k.reshape(out_k.shape[0], -1), out_p.reshape(out_k.shape[0],
+                                                              -1)
+    ak, ap = fk.argmax(1), fp.argmax(1)
+    rows = torch.arange(fk.shape[0], device=fk.device)
+    ties = (fp[rows, ak] == fp[rows, ap]) | (fk[rows, ak] == fk[rows, ap])
+    return err, close, bool(((ak == ap) | ties).all()), int((ak == ap).sum())
+
+
+def _ring_points(rng, B, P, scan_range, res):
+    """Scan-like points: a ring of radii in [0.5, scan_range], the first 64
+    exactly on cell edges at theta = 0."""
+    import numpy as np
+    r = rng.uniform(0.5, scan_range, (B, P))
+    a = rng.uniform(-np.pi, np.pi, (B, P))
+    pts = np.stack([r * np.cos(a), r * np.sin(a)], -1).astype(np.float32)
+    pts[:, :64, 0] = (np.arange(64) * res - scan_range + 3 * res)
+    return pts
+
+
 def kernel_case(dev, scan_range, C=8, P=768, seed=0):
     """Kernel vs plain on coarse-stage inputs built the way the matcher
     builds them, with ~10% masked points and points on cell edges."""
@@ -85,12 +132,7 @@ def kernel_case(dev, scan_range, C=8, P=768, seed=0):
     noff = 2 * params.offset_cells(res) + 1
     n_rot = int(np.ceil(2 * params.rotation_restriction / (res / scan_range)))
     rng = np.random.default_rng(seed)
-    r = rng.uniform(0.5, scan_range, (C, P))
-    a = rng.uniform(-np.pi, np.pi, (C, P))
-    pts = np.stack([r * np.cos(a), r * np.sin(a)], -1).astype(np.float32)
-    # Points exactly on cell edges at theta = 0 (first rotation below).
-    edges = (np.arange(64) * res - scan_range + 3 * res).astype(np.float32)
-    pts[:, :64, 0] = edges
+    pts = _ring_points(rng, C, P, scan_range, res)
     mask = rng.random((C, P)) > 0.1
     table_pts = torch.as_tensor(pts[::-1].copy(), device=dev)
     tables, _ = csm.build_tables(table_pts, torch.ones((C, P), dtype=torch.bool,
@@ -107,14 +149,7 @@ def kernel_case(dev, scan_range, C=8, P=768, seed=0):
     out_k = csm_coarse.fused_coarse(parked, thetas, tables, **kw)
     out_p = csm_coarse.fused_coarse_reference(parked, thetas, tables, **kw)
     torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    close = bool(torch.allclose(out_k, out_p, rtol=RTOL, atol=ATOL))
-    fk, fp = out_k.reshape(C, -1), out_p.reshape(C, -1)
-    ak, ap = fk.argmax(1), fp.argmax(1)
-    rows = torch.arange(C, device=dev)
-    ties = (fp[rows, ak] == fp[rows, ap]) | (fk[rows, ak] == fk[rows, ap])
-    argmax_ok = bool(((ak == ap) | ties).all())
-    n_same = int((ak == ap).sum())
+    err, close, argmax_ok, n_same = agreement(out_k, out_p)
     ms = cuda_ms(lambda: csm_coarse.fused_coarse(parked, thetas, tables, **kw),
                  20)
     plain_ms = cuda_ms(lambda: csm_coarse.fused_coarse_reference(
@@ -132,6 +167,98 @@ def kernel_case(dev, scan_range, C=8, P=768, seed=0):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def correlate_case(dev, scan_range, B, seed):
+    """Correlation kernel vs plain on the pair engine's inputs: log tables
+    from build_tables (rounded through bf16) and rasters of the rotated
+    source points, built as csm._search_stage builds them."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.kernels import csm, csm_correlate
+
+    params = csm.CSMParams(scan_range=scan_range)
+    res = params.low_res
+    cells = params.kernel_cells(res)
+    n_rot = csm._coarse_rot_count(params)
+    P = 768
+    rng = np.random.default_rng(seed)
+    pts = torch.as_tensor(_ring_points(rng, B, P, scan_range, res), device=dev)
+    mask = torch.as_tensor(rng.random((B, P)) > 0.1, device=dev)
+    tables, _ = csm.build_tables(pts.flip(0).contiguous(),
+                                 torch.ones((B, P), dtype=torch.bool,
+                                            device=dev), params)
+    tables = csm._coarse_table(tables, params)
+    thetas = rng.uniform(-np.pi, np.pi, (B, n_rot)).astype(np.float32)
+    thetas[:, 0] = 0.0
+    thetas = torch.as_tensor(thetas, device=dev)
+    rot = csm._rotate(pts[:, None], thetas)
+    rasters = csm._raster(rot.reshape(B * n_rot, P, 2),
+                          mask[:, None].expand(B, n_rot, P)
+                          .reshape(B * n_rot, P),
+                          scan_range, res, cells).reshape(B, n_rot, cells,
+                                                          cells)
+    H = tables.shape[1]
+    out_k = csm_correlate.correlate(tables, rasters)
+    out_p = csm_correlate.correlate_reference(tables, rasters)
+    torch.cuda.synchronize()
+    err, close, argmax_ok, n_same = agreement(out_k, out_p)
+    ms = cuda_ms(lambda: csm_correlate.correlate(tables, rasters), 10)
+    plain_ms = cuda_ms(lambda: csm_correlate.correlate_reference(
+        tables, rasters), 5)
+    smem = csm_correlate.table_in_shared_memory(H, H)
+    print(f"  scan_range={scan_range} B={B} R={n_rot} H=W={H} kh=kw={cells} "
+          f"table_in_smem={smem}: max_abs_err={err!r} "
+          f"allclose(rtol={RTOL},atol={ATOL})={close} "
+          f"argmax_equal={n_same}/{B} kernel_ms={ms!r} plain_ms={plain_ms!r}",
+          flush=True)
+    if not close:
+        fail(f"correlation kernel disagrees with plain (max abs err {err})")
+    if not argmax_ok:
+        fail("correlation argmax differs from the plain version's beyond a "
+             "tie")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def correlate_global_case(dev, B=2, H=240, R=32, cells=226, seed=3):
+    """A table too large for shared memory, integer-valued: the kernel reads
+    it from global memory, and every sum is exact, so kernel and plain
+    agree bit for bit."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.kernels import csm, csm_correlate
+
+    rng = np.random.default_rng(seed)
+    half, res, P = cells * 0.3 / 2, 0.3, 768
+    pts = torch.as_tensor(_ring_points(rng, B, P, half, res), device=dev)
+    thetas = torch.as_tensor(rng.uniform(-np.pi, np.pi, (B, R))
+                             .astype(np.float32), device=dev)
+    rot = csm._rotate(pts[:, None], thetas)
+    rasters = csm._raster(rot.reshape(B * R, P, 2),
+                          torch.ones((B * R, P), dtype=torch.bool, device=dev),
+                          half, res, cells).reshape(B, R, cells, cells)
+    tables = torch.as_tensor(rng.integers(-8, 8, (B, H, H))
+                             .astype(np.float32), device=dev)
+    out_k = csm_correlate.correlate(tables, rasters)
+    out_p = csm_correlate.correlate_reference(tables, rasters)
+    torch.cuda.synchronize()
+    smem = csm_correlate.table_in_shared_memory(H, H)
+    exact = bool(torch.equal(out_k, out_p))
+    err = float((out_k - out_p).abs().max())
+    print(f"  integer table H=W={H} B={B} R={R} kh=kw={cells} "
+          f"table_in_smem={smem}: bit_exact={exact} max_abs_err={err!r}",
+          flush=True)
+    if smem:
+        fail(f"an {H}x{H} table was expected not to fit shared memory")
+    if not exact:
+        fail("correlation kernel is not bit-exact on integer tables")
+    return err
+
+
+HITL_SMALL_CFG = "hitl_line_width=0.1\nhitl_pose_point_threshold=10\n"
+# The reverse-traversal box's bottom wall at y = -6, and its copy 0.3 m up
+# that the return pass sees once its poses are shifted by 0.3 m.
+HITL_SMALL_LINE = "-5.5 -6 5.5 -6 -5.5 -5.7 5.5 -5.7"
+
+
 def small_reference(cfg_text):
     """The slice at small size on the card and on the CPU."""
     import numpy as np
@@ -141,7 +268,9 @@ def small_reference(cfg_text):
     from nautilus_tpu_torch.loop_closure.auto_lc import solve_auto_lc
     from nautilus_tpu_torch.solve.solver import Solver
 
-    cfg = load_config_text(cfg_text)
+    from nautilus_tpu_torch.cli import apply_hitl_line
+
+    cfg = load_config_text(cfg_text + HITL_SMALL_CFG)
     out = {}
     for dev in ("cpu", "cuda"):
         state, _ = reverse_traversal_problem(3, device=dev)
@@ -150,9 +279,17 @@ def small_reference(cfg_text):
         rep = solve_auto_lc(solver, apply=True, verbose=False,
                             csm_params=CSMParams(scan_range=10.0,
                                                  high_res=0.05))
-        out[dev] = (state.solution.copy(), rep.accepted)
-    sol_c, acc_c = out["cpu"]
-    sol_g, acc_g = out["cuda"]
+        closed = state.solution.copy()
+        # A curation step on a doubled wall: the return pass drifts 0.3 m.
+        state.solution[19:, 1] += 0.3
+        apply_hitl_line(solver, HITL_SMALL_LINE.split(), verbose=False)
+        c = state.hitl_constraints[0]
+        out[dev] = (closed, rep.accepted, state.solution.copy(),
+                    state.line_poses.copy(),
+                    ([k for k, _ in c.line_a_poses],
+                     [k for k, _ in c.line_b_poses]))
+    sol_c, acc_c, hitl_c, line_c, sel_c = out["cpu"]
+    sol_g, acc_g, hitl_g, line_g, sel_g = out["cuda"]
     diff = float(np.abs(sol_c - sol_g).max())
     print(f"  reverse traversal (32 poses): accepted cuda={acc_g} cpu={acc_c} "
           f"max |pose cuda - pose cpu|={diff!r} (atol {POSE_ATOL})",
@@ -163,6 +300,46 @@ def small_reference(cfg_text):
         fail("reverse traversal did not close")
     if not np.all(np.isfinite(sol_g)) or diff > POSE_ATOL:
         fail("card poses disagree with the CPU reference")
+    diff_h = float(max(np.abs(hitl_c - hitl_g).max(),
+                       np.abs(line_c - line_g).max()))
+    print(f"  HITL step (doubled wall): selected line A / line B cuda="
+          f"{sel_g[0]} / {sel_g[1]} cpu={sel_c[0]} / {sel_c[1]}; max |pose "
+          f"cuda - pose cpu|={diff_h!r} (atol {POSE_ATOL}); line pose cuda "
+          f"{line_g.tolist()} cpu {line_c.tolist()}", flush=True)
+    if sel_c != sel_g:
+        fail("HITL selected different poses on the card and on the CPU")
+    if not sel_g[0] or not sel_g[1]:
+        fail("the small HITL step selected no pose on a line")
+    if not (np.all(np.isfinite(hitl_g)) and np.all(np.isfinite(line_g))) \
+            or diff_h > POSE_ATOL:
+        fail("card HITL poses disagree with the CPU reference")
+
+
+def bench_csm_leg(state, engines):
+    """bench.py's scan-matching leg: 64 pairs (i, i+1) at the reference
+    params and at 12 m, pairs/s best of 3 after a warm call."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.kernels.csm import CSMParams, csm_match_pairs
+
+    pts, msk = state.problem.points, state.problem.points_mask
+    ss = np.arange(64)
+    tt = ss + 1
+    rates = {}
+    for label, params in (("reference", CSMParams()),
+                          ("12m", CSMParams(scan_range=12.0))):
+        for engine in engines:
+            csm_match_pairs(pts, msk, ss, tt, params, engine=engine)
+            best = float("inf")
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                csm_match_pairs(pts, msk, ss, tt, params, engine=engine)
+                best = min(best, time.perf_counter() - t0)
+            rates[(label, engine)] = len(ss) / best
+            print(f"  csm {label} engine={engine}: {len(ss) / best!r} "
+                  f"pairs/s (best of 3, 64 pairs)", flush=True)
+    return rates
 
 
 def main():
@@ -178,9 +355,9 @@ def main():
 
     # -- 1. environment ------------------------------------------------------
     t_all = time.perf_counter()
-    print("[1/5] environment", flush=True)
+    print("[1/8] environment", flush=True)
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
-    from nautilus_tpu_torch.kernels import csm_coarse
+    from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
     print(f"  python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -189,29 +366,54 @@ def main():
         fail("TF32 is enabled after importing nautilus_tpu_torch")
     print("  tf32: cuda.matmul.allow_tf32=False cudnn.allow_tf32=False")
     dev = torch.device("cuda")
+    counters = (csm_coarse.fused_coarse, csm_correlate.correlate)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    print("[2/5] build", flush=True)
-    t0 = time.perf_counter()
-    csm_coarse.build()
-    print(f"  built {csm_coarse.build_info['path']} in "
-          f"{time.perf_counter() - t0!r} s (nvcc {csm_coarse.build_info['seconds']!r} s)")
-    for line in csm_coarse.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # -- 3. kernel against plain --------------------------------------------
-    from nautilus_tpu_torch.kernels.csm import PAIR_CHUNK
-    print(f"[3/5] kernel against plain (bench shapes at C=8 and at the main "
-          f"path's chunk of C={PAIR_CHUNK} pairs, then the gdc_2020 range)",
+    print("[2/8] build: one nvcc per kernel source, started together",
           flush=True)
+    sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
+    t0 = time.perf_counter()
+    _build.build_all(sources)
+    print(f"  built {len(sources)} kernels in {time.perf_counter() - t0!r} s")
+    for src in sources:
+        info = _build.build_info[src.name]
+        print(f"  {src.name}: {info['path']} (nvcc {info['seconds']!r} s)")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
+
+    # -- 3. fused coarse kernel against plain ---------------------------------
+    from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
+    print(f"[3/8] fused coarse kernel against plain (bench shapes at C=8 and "
+          f"at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
+          f"gdc_2020 range)", flush=True)
     cases = [kernel_case(dev, scan_range=30.0),
              kernel_case(dev, scan_range=30.0, C=PAIR_CHUNK, seed=2),
              kernel_case(dev, scan_range=8.5, seed=1)]
     main_shape = cases[1]
 
-    # -- 4. small-input reference -------------------------------------------
-    print("[4/5] small-input reference: card vs CPU", flush=True)
+    # -- 4. correlation kernel against plain ----------------------------------
+    print(f"[4/8] correlation kernel against plain (the pair engine's batch "
+          f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
+          f"table in global memory)", flush=True)
+    corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
+                  correlate_case(dev, 12.0, PAIR_BATCH, seed=5),
+                  correlate_case(dev, 8.5, PAIR_BATCH, seed=6)]
+    corr_err = max(max(c["max_abs_err"] for c in corr_cases),
+                   correlate_global_case(dev))
+    corr_shape = corr_cases[0]
+
+    # -- 5. small-input reference -------------------------------------------
+    print("[5/8] small-input reference: card vs CPU", flush=True)
     small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -220,20 +422,19 @@ def main():
         "keyframe_local_uncertainty_filtering=true\nlc_match_window_size=2\n"
         "accuracy_change_stop_threshold=0.0001\n")
 
-    # -- 5. main path ---------------------------------------------------------
-    print("[5/5] main path: make_problem(1000, building, 720 beams, seed 1) "
+    # -- 6. main path ---------------------------------------------------------
+    print("[6/8] main path: make_problem(1000, building, 720 beams, seed 1) "
           "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses",
           flush=True)
     from nautilus_tpu_torch.core.luaconf import load_config
     from nautilus_tpu_torch.ingest.synthetic import make_problem
     from nautilus_tpu_torch.io.poses import read_pose_file, write_poses
-    from nautilus_tpu_torch.loop_closure.auto_lc import solve_auto_lc
+    from nautilus_tpu_torch.loop_closure import auto_lc
     from nautilus_tpu_torch.solve.solver import Solver
     from nautilus_tpu_torch.utils.metrics import ate
 
     cfg = load_config(ROOT / "config" / "default_config.lua")
-    csm_coarse.fused_coarse.launches = 0
-    torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     state, gt = make_problem(1000, "building", num_beams=720, seed=1,
                              odom_noise_trans=0.02, odom_noise_rot=0.008,
@@ -247,14 +448,14 @@ def main():
     t_solve = time.perf_counter() - t0
     x_solved = state.solution.copy()
     t0 = time.perf_counter()
-    report = solve_auto_lc(solver, apply=True, verbose=False)
+    report = auto_lc.solve_auto_lc(solver, apply=True, verbose=False)
     t_lc = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "poses.txt"
         write_poses(state, path)
         back = read_pose_file(path)
-    torch.cuda.synchronize()
-    launches = csm_coarse.fused_coarse.launches
+    main_counts = read_counts()
+    launches = main_counts["fused_coarse"]
 
     sol = state.solution
     ate_odom = ate(x0, gt)["trans_rmse"]
@@ -276,7 +477,7 @@ def main():
     print(f"  ATE m: odometry {ate_odom!r} solved {ate_solved!r} closed "
           f"{ate_closed!r} (BENCH_r05: {BENCH_R05['ate_odometry']} / "
           f"{BENCH_R05['ate_solved']} / {BENCH_R05['ate_closed']})")
-    print(f"  fused_coarse launches in the main path: {launches}")
+    print(f"  kernel launches in the main path: {main_counts}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30!r}"
           " GiB", flush=True)
 
@@ -291,19 +492,127 @@ def main():
         fail("auto-LC applied no closure")
     if not ate_closed < ate_odom:
         fail(f"closed ATE {ate_closed} is not below odometry ATE {ate_odom}")
+
+    # -- 7. pair engine ---------------------------------------------------------
+    print("[7/8] pair engine: bench.py's CSM leg, then the main path's gated "
+          "pairs through engine='pair' against engine='stage'", flush=True)
+    zero_counts()
+    bench_csm_leg(state, ("stage", "pair"))
+    # The gated pairs as auto-LC matched them: at the solution it gated on.
+    at_gate = dataclasses.replace(state, solution=x_solved)
+    params = auto_lc._csm_params_from_config(cfg)
+    match_w = int(cfg.get("lc_match_window_size", 0))
+    threshold = float(cfg.csm_score_threshold)
+    result = {}
+    for engine in ("stage", "pair"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, transforms, best_tt, n_exp = auto_lc.match_gated_pairs(
+            at_gate, report.gated_pairs, params, match_w, engine=engine)
+        wall = time.perf_counter() - t0
+        accepted = [(s, int(t)) for (s, _), t, sc in
+                    zip(report.gated_pairs, best_tt, scores) if sc >= threshold]
+        result[engine] = (scores, transforms, accepted)
+        print(f"  gated pairs engine={engine}: {n_exp} window-expanded pairs "
+              f"in {wall!r} s ({n_exp / wall!r} pairs/s), accepted "
+              f"{len(accepted)}", flush=True)
+    pair_counts = read_counts()
+    s_st, tr_st, acc_st = result["stage"]
+    s_pr, tr_pr, acc_pr = result["pair"]
+    d_trans = float(np.abs(tr_pr[:, :2] - tr_st[:, :2]).max())
+    d_rot = float(np.abs(tr_pr[:, 2] - tr_st[:, 2]).max())
+    d_score = float(np.abs(s_pr - s_st).max())
+    step_t, step_r = params.high_res, params.high_res / params.scan_range
+    print(f"  pair vs stage: accepted equal {acc_pr == acc_st} "
+          f"(main path accepted {len(report.accepted)}); max |d score| "
+          f"{d_score!r}; max |d translation| {d_trans!r} m (grid {step_t}); "
+          f"max |d rotation| {d_rot!r} rad (grid {step_r!r})")
+    print(f"  kernel launches in the pair-engine path: {pair_counts}",
+          flush=True)
+    if acc_st != report.accepted:
+        fail("the stage engine's rerun accepted another set than auto-LC")
+    if acc_pr != acc_st:
+        fail("engine='pair' accepted another set than engine='stage'")
+    if d_trans > step_t + 1e-6 or d_rot > step_r + 1e-6:
+        fail("engine='pair' transforms differ from engine='stage' by more "
+             "than the finest grid step")
+    if pair_counts["correlate"] == 0:
+        fail("the pair-engine path never launched the correlation kernel")
+
+    # -- 8. HITL ----------------------------------------------------------------
+    print(f"[8/8] HITL: bench.py's scripted constraint (lines "
+          f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map",
+          flush=True)
+    from nautilus_tpu_torch.cli import apply_hitl_line
+    from nautilus_tpu_torch.solve.hitl import hitl_cost
+
+    zero_counts()
+    solver.config = cfg.replace(hitl_line_width=HITL_WIDTH)
+    hitl_costs = []
+    solve_slam = solver.solve_slam
+
+    def solve_and_record():
+        out = solve_slam()
+        hitl_costs.append(hitl_cost(state))
+        return out
+
+    solver.solve_slam = solve_and_record
+    tokens = [str(v) for pt in HITL_LINES for v in pt]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, second = apply_hitl_line(solver, tokens, verbose=False)
+    torch.cuda.synchronize()
+    t_hitl = time.perf_counter() - t0
+    solver.solve_slam = solve_slam
+    hitl_counts = read_counts()
+    c = state.hitl_constraints[0]
+    start = dataclasses.replace(state, solution=sol.copy(),
+                                line_poses=np.zeros((1, 3)))
+    cost_start = hitl_cost(start)
+    print(f"  poses selected: line A {len(c.line_a_poses)} "
+          f"{[k for k, _ in c.line_a_poses]}")
+    print(f"  poses selected: line B {len(c.line_b_poses)} "
+          f"{[k for k, _ in c.line_b_poses]}")
+    for name, st in (("first solve (solved odometry + HITL)", first),
+                     ("second solve (initial odometry + HITL)", second)):
+        print(f"  {name}: wall {st.total_wall_s!r} s; per window (window, "
+              "iterations, initial cost, final cost):")
+        for w in st.windows:
+            print(f"    {w.window} {w.iterations} {w.initial_cost!r} "
+                  f"{w.final_cost!r}")
+    print(f"  HITL residual cost: start {cost_start!r}, after the first "
+          f"solve {hitl_costs[0]!r}, after the second {hitl_costs[1]!r}; "
+          f"line pose {state.line_poses.tolist()}")
+    print(f"  HITL step wall {t_hitl!r} s; kernel launches {hitl_counts}",
+          flush=True)
+    if not c.line_a_poses and not c.line_b_poses:
+        fail("the HITL step selected no pose")
+    if not (np.all(np.isfinite(state.solution))
+            and np.all(np.isfinite(state.line_poses))):
+        fail("non-finite poses after the HITL step")
+    if not hitl_costs[0] < cost_start:
+        fail(f"the HITL residual cost did not drop in the first solve "
+             f"({cost_start} -> {hitl_costs[0]})")
+
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
     print(f"total wall {time.perf_counter() - t_all!r} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_coarse", "route": "cuda",
-        "source": "nautilus_tpu_torch/kernels/csrc/csm_coarse.cu",
-        "replaces": "nautilus_tpu/kernels/csm_pallas.py:82",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "fused_coarse", "route": "cuda",
+         "source": "nautilus_tpu_torch/kernels/csrc/csm_coarse.cu",
+         "replaces": "nautilus_tpu/kernels/csm_pallas.py:82",
+         "launches": launches,
+         "max_abs_err": max(c["max_abs_err"] for c in cases),
+         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]},
+        {"name": "correlate", "route": "cuda",
+         "source": "nautilus_tpu_torch/kernels/csrc/csm_correlate.cu",
+         "replaces": "nautilus_tpu/kernels/csm_pallas.py:43",
+         "launches": pair_counts["correlate"],
+         "max_abs_err": corr_err,
+         "ms": corr_shape["ms"], "plain_ms": corr_shape["plain_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

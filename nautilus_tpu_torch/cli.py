@@ -3,10 +3,17 @@ nautilus_tpu/cli.py, the synthetic-world path).
 
 Flow: flags -> Lua config -> synthetic world -> preprocess on the device ->
 SLAMState -> optional solution reload -> growing-window solve -> auto loop
-closure when the config sets ``auto_lc=true`` -> pose file.
+closure when the config sets ``auto_lc=true`` -> HITL curation -> pose file.
 
     python -m nautilus_tpu_torch.cli --config_file config/default_config.lua \
         --synthetic building --write [--device cuda]
+
+Curation commands:
+- ``--hitl_replay FILE``: a text file of line pairs, one
+  ``ax ay ax2 ay2 bx by bx2 by2`` per line (``#`` starts a comment),
+  applied in order after the solve;
+- ``--interactive``: a stdin loop of ``hitl <8 floats>``, ``write`` and
+  ``quit``.
 """
 
 from __future__ import annotations
@@ -14,15 +21,13 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 # Flags of the JAX CLI that the port does not have yet (ROADMAP.md).
-_NOT_PORTED = {
-    "--hitl_replay": "HITL and border", "--vectorize": "vectorize",
-    "--interactive": "HITL and border", "--ros": "viz",
-    "--devices": "sharded",
-}
+_NOT_PORTED = {"--vectorize": "vectorize and checkpoint", "--ros": "viz",
+               "--devices": "sharded"}
 
 
 def build_state(cfg, args, device, verbose=True):
@@ -47,6 +52,46 @@ def build_state(cfg, args, device, verbose=True):
     return SLAMState.from_problem(problem, raw.timestamps)
 
 
+def apply_hitl_line(solver, tokens, verbose=True):
+    """One curation step from 8 numbers: line A's ends, then line B's."""
+    from nautilus_tpu_torch.solve.hitl import HitlSlamInputMsg, hitl_callback
+    vals = [float(t) for t in tokens]
+    if len(vals) != 8:
+        raise ValueError("hitl needs 8 floats: ax ay ax2 ay2 bx by bx2 by2")
+    msg = HitlSlamInputMsg.from_points(vals[0:2], vals[2:4], vals[4:6],
+                                       vals[6:8])
+    return hitl_callback(solver, msg, verbose=verbose)
+
+
+def _interactive(solver, cfg, verbose):
+    from nautilus_tpu_torch.io.poses import write_poses
+    if verbose:
+        print("Waiting for Loop Closure input. Commands: "
+              "hitl <8 floats> | write | quit")
+    for raw_line in sys.stdin:
+        tokens = raw_line.split()
+        if not tokens:
+            continue
+        cmd = tokens[0].lower()
+        if cmd == "quit":
+            break
+        try:
+            if cmd == "hitl":
+                apply_hitl_line(solver, tokens[1:], verbose=verbose)
+            elif cmd == "write":
+                write_poses(solver.state, cfg.pose_output_file)
+                print(f"Wrote poses to {cfg.pose_output_file}")
+            elif cmd == "vectorize":
+                raise NotImplementedError(
+                    "vectorize is not yet ported (ROADMAP.md section 1, "
+                    "'vectorize and checkpoint')")
+            else:
+                print(f"Unknown command: {cmd}")
+        except (ValueError, NotImplementedError, OSError) as e:
+            # Bad input must not end the curation session.
+            print(f"Error: {e}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     for flag, item in _NOT_PORTED.items():
@@ -61,8 +106,12 @@ def main(argv=None) -> int:
     ap.add_argument("--synthetic", default="",
                     help="synthetic world (corner|room|office|building)")
     ap.add_argument("--synthetic_seed", type=int, default=0)
+    ap.add_argument("--hitl_replay", default="",
+                    help="file of HITL line pairs to apply after the solve")
     ap.add_argument("--write", action="store_true",
                     help="write pose_output_file after solving")
+    ap.add_argument("--interactive", action="store_true",
+                    help="stdin command loop (hitl/write/quit)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda when available)")
     ap.add_argument("--quiet", action="store_true")
@@ -101,10 +150,18 @@ def main(argv=None) -> int:
         from nautilus_tpu_torch.loop_closure.auto_lc import solve_auto_lc
         solve_auto_lc(solver, apply=True, verbose=verbose)
 
+    if args.hitl_replay:
+        for line in Path(args.hitl_replay).read_text().splitlines():
+            line = line.strip()
+            if line and not line.startswith("#"):
+                apply_hitl_line(solver, line.split(), verbose=verbose)
+
     if args.write:
         write_poses(state, cfg.pose_output_file)
         if verbose:
             print(f"Wrote poses to {cfg.pose_output_file}")
+    if args.interactive:
+        _interactive(solver, cfg, verbose)
     return 0
 
 

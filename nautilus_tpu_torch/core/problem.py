@@ -85,12 +85,15 @@ class SLAMState:
     problem: SLAMProblem
     solution: np.ndarray              # [N, 3] float64
     timestamps: np.ndarray            # [N] float64
-    # Active odometry factors (i, j, trans, rot) on the host.
+    # Active odometry factors (i, j, trans, rot) on the host.  A HITL step
+    # swaps in the densified solved odometry, then restores the ingest-time
+    # factors kept in initial_odometry_factors.
     odometry_factors: tuple = ()
+    initial_odometry_factors: tuple = ()
     # Accepted auto-loop-closure factors: (i, j, trans, rot, wt, wr).
     lc_factors: list = dataclasses.field(default_factory=list)
-    # HITL line constraints are not ported: these stay empty, and the
-    # solver refuses a state that carries any.
+    # HITL line constraints (solve/hitl.HitlConstraint) and their free line
+    # poses [L, 3], one per constraint.
     hitl_constraints: list = dataclasses.field(default_factory=list)
     line_poses: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0, 3), dtype=np.float64))
@@ -106,7 +109,7 @@ class SLAMState:
                    problem.odom_rot.cpu().numpy().astype(np.float64))
         return cls(problem=problem, solution=init.copy(),
                    timestamps=np.asarray(timestamps, dtype=np.float64),
-                   odometry_factors=factors)
+                   odometry_factors=factors, initial_odometry_factors=factors)
 
     @property
     def num_nodes(self) -> int:

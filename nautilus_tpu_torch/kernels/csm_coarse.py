@@ -13,83 +13,30 @@ against the pair's coarse log table over ``noff x noff`` offsets.
   raster by ``scatter_add``, then the correlation as a batched im2col
   product, chunked over pairs.
 
-The kernel is built on first use with ``nvcc`` into
-``build/nautilus_tpu_torch/`` at the repository root, keyed by the source's
-hash, and loaded with ``ctypes``.
+The kernel is built on first use (kernels/_build.py) and loaded with
+``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "csm_coarse.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nautilus_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from nautilus_tpu_torch.kernels import _build
+
+SOURCE = _build.CSRC / "csm_coarse.cu"
 MAX_OFFSETS = 256          # one thread per offset (kThreads in the source)
-
-_lib = None
-build_info: dict = {}      # path, seconds and compiler log of the last build
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the CSM coarse kernel is built from "
-                       f"{SOURCE} on a machine with the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile the kernel if its source changed; returns the library path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"csm_coarse_{digest}.so"
-    if lib_path.exists():
-        build_info.update(path=str(lib_path), seconds=0.0, log="(cached)")
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_lib = Path(tmp) / lib_path.name
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp_lib, lib_path)
-    build_info.update(path=str(lib_path),
-                      seconds=time.perf_counter() - t0,
-                      log=(proc.stdout + proc.stderr).strip())
-    return lib_path
+_SIGNATURES = {
+    "nautilus_csm_fused_coarse": (
+        ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "nautilus_csm_smem_limit": (ctypes.c_int, []),
+}
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.nautilus_csm_fused_coarse
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.nautilus_csm_smem_limit.argtypes = []
-        lib.nautilus_csm_smem_limit.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.load(SOURCE, _SIGNATURES)
 
 
 def table_in_shared_memory(T: int, P: int) -> bool:

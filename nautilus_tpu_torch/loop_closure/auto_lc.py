@@ -68,6 +68,43 @@ def relative_pose_factor(state, s: int, t: int, transform: np.ndarray,
     return (i, j, trans, float(rot), wt, wr)
 
 
+def match_gated_pairs(state, gated_pairs, params: CSMParams, match_w: int,
+                      engine: str = "stage"):
+    """Scan-match each gated pair (s, t) against t's +-match_w trajectory
+    neighbours; the best-scoring member wins.  Rotation searches are
+    centred on the solution-implied relative heading, so reverse
+    traversals (~pi) are inside the window.
+
+    Returns (scores [K], transforms [K, 3], best targets [K], number of
+    window-expanded pairs matched); ``engine`` picks csm_match_pairs'
+    engine."""
+    n_nodes = state.num_nodes
+    exp_ss, exp_tt, owner = [], [], []
+    for k, (s, t) in enumerate(gated_pairs):
+        for dt in range(-match_w, match_w + 1):
+            t2 = t + dt
+            if 0 <= t2 < n_nodes and t2 != s:
+                exp_ss.append(s)
+                exp_tt.append(t2)
+                owner.append(k)
+    ss, tt = np.asarray(exp_ss, np.int64), np.asarray(exp_tt, np.int64)
+    centers = wrap_angle(state.solution[ss, 2] - state.solution[tt, 2])
+    all_scores, all_transforms = csm_match_pairs(
+        state.problem.points, state.problem.points_mask, ss, tt, params,
+        rotation_centers=centers, engine=engine)
+    all_transforms = np.asarray(all_transforms, np.float64)
+    scores = np.full(len(gated_pairs), -np.inf)
+    transforms = np.zeros((len(gated_pairs), 3))
+    best_tt = np.array([t for _, t in gated_pairs], np.int64)
+    for j in range(len(ss)):
+        k = owner[j]
+        if all_scores[j] > scores[k]:
+            scores[k] = all_scores[j]
+            transforms[k] = all_transforms[j]
+            best_tt[k] = tt[j]
+    return scores, transforms, best_tt, len(ss)
+
+
 def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
                   csm_params: CSMParams = None,
                   use_descriptor_gate: bool = False) -> AutoLCReport:
@@ -122,35 +159,9 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
         return report
 
     t0 = time.perf_counter()
-    params = csm_params or _csm_params_from_config(cfg)
-    match_w = int(cfg.get("lc_match_window_size", 0))
-    n_nodes = state.num_nodes
-    exp_ss, exp_tt, owner = [], [], []
-    for k, (s, t) in enumerate(report.gated_pairs):
-        for dt in range(-match_w, match_w + 1):
-            t2 = t + dt
-            if 0 <= t2 < n_nodes and t2 != s:
-                exp_ss.append(s)
-                exp_tt.append(t2)
-                owner.append(k)
-    ss, tt = np.asarray(exp_ss), np.asarray(exp_tt)
-    # Seed each pair's rotation search with the solution-implied relative
-    # heading, so reverse traversals (~pi) are inside the window.
-    centers = wrap_angle(state.solution[ss, 2] - state.solution[tt, 2])
-    all_scores, all_transforms = csm_match_pairs(
-        state.problem.points, state.problem.points_mask, ss, tt, params,
-        rotation_centers=centers)
-    all_transforms = np.asarray(all_transforms, np.float64)
-    # Best window member per gated pair.
-    scores = np.full(len(report.gated_pairs), -np.inf)
-    transforms = np.zeros((len(report.gated_pairs), 3))
-    best_tt = np.array([t for _, t in report.gated_pairs])
-    for j in range(len(ss)):
-        k = owner[j]
-        if all_scores[j] > scores[k]:
-            scores[k] = all_scores[j]
-            transforms[k] = all_transforms[j]
-            best_tt[k] = tt[j]
+    scores, transforms, best_tt, _ = match_gated_pairs(
+        state, report.gated_pairs, csm_params or _csm_params_from_config(cfg),
+        int(cfg.get("lc_match_window_size", 0)))
     threshold = float(cfg.csm_score_threshold)
     wt = float(cfg.lc_translation_weight)
     wr = float(cfg.lc_rotation_weight)

@@ -29,11 +29,12 @@ CHI_SQUARE_THRESHOLD = 5000.0
 def _cross_cov_blocks_band(sys: BandedSystem, fixed_pose: int, sources,
                            targets):
     """[K, 2, 2] cross-covariance blocks for pairs (sources[k], targets[k])
-    from one band factorization gauged at ``fixed_pose``."""
+    from one band factorization gauged at ``fixed_pose``; HITL line poses
+    stay free."""
     n = sys.n
     dev = sys.diag.device
-    fixed = torch.repeat_interleave(torch.arange(n, device=dev) == fixed_pose,
-                                    3)
+    fixed = torch.repeat_interleave(
+        torch.arange(n + sys.num_lines, device=dev) == fixed_pose, 3)
     k3 = torch.arange(3, device=dev)
     cols = (3 * targets[:, None] + k3).reshape(-1)
     X = band_inverse_node_columns(sys, fixed, cols)           # [3n, 3K]
@@ -51,8 +52,9 @@ class LCMatcher:
 
     def __init__(self, state, graph: FactorGraph, layout, lr=None):
         self.state = state
-        x = torch.as_tensor(state.solution, dtype=torch.float32,
-                            device=state.problem.device)
+        x = torch.as_tensor(
+            np.concatenate([state.solution, state.line_poses]),
+            dtype=torch.float32, device=state.problem.device)
         self._sys, _ = assemble_banded_system(x, graph, layout, True, lr)
         self._pair_cache = {}
 

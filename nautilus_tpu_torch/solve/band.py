@@ -1,5 +1,5 @@
 """Block-band Cholesky solver for the SLAM normal equations (port of
-nautilus_tpu/solve/band.py, without the HITL border).
+nautilus_tpu/solve/band.py, scan backend).
 
 Lidar/odometry factors couple nodes within the window (|i - j| <= w), so H
 is block-banded with 3x3 blocks.  Grouping s >= w block rows into
@@ -9,7 +9,11 @@ sub-diagonal B_k), factored by a sequential scan:
   L_0 L_0^T = A_0;   C_k = B_k L_{k-1}^{-T};   L_k L_k^T = A_k - C_k C_k^T
 
 followed by forward/backward substitution.  Long-range loop closures
-(H_lr = U U^T) fold in by the Woodbury identity.
+(H_lr = U U^T) fold in by the Woodbury identity.  HITL line poses couple a
+few extra dofs to arbitrary nodes; they form a dense border (C, E, gl)
+that the Schur complement on the small line block eliminates.
+
+Vectors over all dofs are [N + L, 3]: the N nodes, then the L line poses.
 
 A failed Cholesky does not raise: ``cholesky_ex`` reports it, and the
 caller treats the step as rejected (the JAX package sees NaNs there).
@@ -25,21 +29,27 @@ from nautilus_tpu_torch.solve.factors import BandedSystem
 
 
 def band_matvec(sys: BandedSystem, v):
-    """H @ v in band (+ low-rank) form, v [N, 3] -> [N, 3]."""
+    """H @ v in band (+ low-rank, + border) form, v [N + L, 3] -> same."""
+    n = sys.n
+    v, vl = v[:n], v[n:]
     out = torch.einsum("nij,nj->ni", sys.diag, v)
     for d in range(1, sys.w + 1):
         b = sys.band[d - 1]                      # block (i, i-d) at row i
         out[d:] += torch.einsum("nij,nj->ni", b[d:], v[:-d])
         out[:-d] += torch.einsum("nji,nj->ni", b[d:], v[d:])
     if sys.rank_lr:
-        n = sys.n
         uv = sys.U.T @ v.reshape(3 * n)
         out = out + (sys.U @ uv).reshape(n, 3)
-    return out
+    if not sys.num_lines:
+        return out
+    out = out + torch.einsum("nlij,lj->ni", sys.C, vl)
+    outl = (torch.einsum("nlij,ni->lj", sys.C, v)
+            + torch.einsum("lij,lj->li", sys.E, vl))
+    return torch.cat([out, outl])
 
 
 def _apply_gauge_band(sys: BandedSystem, fixed):
-    """Zero fixed rows/cols with a unit diagonal; fixed: [3N] bool."""
+    """Zero fixed rows/cols with a unit diagonal; fixed: [3N + 3L] bool."""
     n = sys.n
     fr = fixed[:3 * n].reshape(n, 3)
     keep = (~fr).to(sys.diag.dtype)
@@ -54,7 +64,17 @@ def _apply_gauge_band(sys: BandedSystem, fixed):
     if sys.rank_lr:
         # Zeroing fixed ROWS of U zeroes both rows and columns of U U^T.
         U = U * keep.reshape(3 * n)[:, None]
-    return BandedSystem(diag, band, sys.g * keep, U)
+    C, E, gl = sys.C, sys.E, sys.gl
+    if sys.num_lines:
+        L = sys.num_lines
+        fl = fixed[3 * n:3 * (n + L)].reshape(L, 3)
+        keepl = (~fl).to(diag.dtype)
+        C = C * keep[:, None, :, None] * keepl[None, :, None, :]
+        E = E * keepl[:, :, None] * keepl[:, None, :] \
+            + torch.diag_embed(fl.to(diag.dtype))
+        gl = gl * keepl
+    return BandedSystem(diag=diag, band=band, g=sys.g * keep, U=U, C=C, E=E,
+                        gl=gl)
 
 
 def _superblock_tridiag(sys: BandedSystem, s: int):
@@ -184,14 +204,26 @@ def _make_node_inverse(sysg: BandedSystem, fac: BandFactorization):
     return node_inverse, fac.ok & (info == 0)
 
 
+def _line_block(E):
+    """Dense block diagonal [3L, 3L] of the line blocks E [L, 3, 3]."""
+    return torch.block_diag(*E.unbind(0))
+
+
+def _border_columns(sys: BandedSystem):
+    """The border C [N, L, 3, 3] as N x 3 rows of 3L columns."""
+    return sys.C.permute(0, 2, 1, 3).reshape(sys.n, 3, 3 * sys.num_lines)
+
+
 def band_inverse_node_columns(sys: BandedSystem, fixed, cols,
                               reg: float = 1e-8):
-    """Columns of H^{-1}: (H^{-1})[:3N, cols] as [3N, m].
+    """Columns of H^{-1}: (H^{-1})[:3N, cols] as [3N, m], cols < 3N.
 
     The covariance engine of the loop-closure gate: gauge by ``fixed``,
     Tikhonov-regularize, factor once and solve all unit columns in one
-    multi-RHS pass (+ Woodbury for long-range closures).  A failed
-    factorization yields NaN columns, as in the JAX package.
+    multi-RHS pass (+ Woodbury for long-range closures).  The HITL border
+    enters by the block-inverse identity (H^-1)_nn = Hn^-1 + Y S^-1 Y^T,
+    Y = Hn^-1 C, S = E - C^T Hn^-1 C.  A failed factorization yields NaN
+    columns, as in the JAX package.
     """
     sysg = _apply_gauge_band(sys, fixed)
     n = sysg.n
@@ -202,16 +234,31 @@ def band_inverse_node_columns(sys: BandedSystem, fixed, cols,
     m = cols.shape[0]
     rhs = (torch.arange(3 * n, device=cols.device)[:, None]
            == cols[None, :]).to(sysg.diag.dtype).reshape(n, 3, m)
-    X = node_inverse(rhs).reshape(3 * n, m)
+    X = node_inverse(rhs)                                     # [N, 3, m]
+    if sysg.num_lines:
+        eye3 = torch.eye(3, dtype=X.dtype, device=X.device)
+        C2 = _border_columns(sysg)
+        Y = node_inverse(C2)                                  # Hn^-1 C
+        S = _line_block(sysg.E + reg * eye3) \
+            - torch.einsum("nim,nik->mk", C2, Y)
+        LS, info = torch.linalg.cholesky_ex(S)
+        CtX = torch.einsum("nim,nik->mk", C2, X)
+        X = X + torch.einsum("nim,mk->nik", Y, torch.cholesky_solve(CtX, LS))
+        ok = ok & (info == 0)
+    X = X.reshape(3 * n, m)
     return torch.where(ok, X, torch.full_like(X, float("nan")))
 
 
 def solve_damped_banded(sys: BandedSystem, fixed, radius, params):
-    """Solve (H + D/radius) dx = -g in band (+ low-rank) form.
+    """Solve (H + D/radius) dx = -g in band (+ low-rank, + border) form.
 
-    LM-scaled damping on the clipped diagonal of the full H (band + U U^T),
-    gauge by fixed-dof masking.  Returns (dx [N, 3], gauged system, ok):
-    ok is False when a Cholesky failed (the step must be rejected).
+    LM-scaled damping on the clipped diagonal of the full H (band + U U^T,
+    and the line blocks), gauge by fixed-dof masking.  With HITL line poses
+    the node block is eliminated first: Y = Hn^-1 C, u = -Hn^-1 g, then the
+    Schur complement S = E - C^T Y gives the line step
+    dxl = S^-1 (-gl - C^T u) and dx = u - Y dxl.  Returns (step [N + L, 3],
+    gauged system, ok): ok is False when a Cholesky failed (the step must be
+    rejected).
     """
     sysg = _apply_gauge_band(sys, fixed)
     n = sysg.n
@@ -224,4 +271,21 @@ def solve_damped_banded(sys: BandedSystem, fixed, radius, params):
     dsys = sysg._replace(diag=sysg.diag + torch.diag_embed(dvec / radius))
     node_inverse, ok = _make_node_inverse(
         dsys, band_factor(dsys, resolve_band_plan(sysg.w)))
-    return node_inverse(-sysg.g), sysg, ok
+    L = sysg.num_lines
+    if not L:
+        return node_inverse(-sysg.g), sysg, ok
+    El = sysg.E
+    dl = torch.clamp(torch.diagonal(El, dim1=-2, dim2=-1),
+                     params.min_diagonal, params.max_diagonal)
+    fl = fixed[3 * n:3 * (n + L)].reshape(L, 3)
+    dl = torch.where(fl, torch.zeros_like(dl), dl)
+    C2 = _border_columns(sysg)                                # [N, 3, 3L]
+    sol = node_inverse(torch.cat([C2, -sysg.g[..., None]], dim=-1))
+    Y, u = sol[..., :3 * L], sol[..., 3 * L]                  # Hn^-1 C, -Hn^-1 g
+    S = _line_block(El + torch.diag_embed(dl / radius)) \
+        - torch.einsum("nim,nik->mk", C2, Y)
+    rl = -sysg.gl.reshape(3 * L) - torch.einsum("nim,ni->m", C2, u)
+    LS, info = torch.linalg.cholesky_ex(S)
+    dxl = torch.cholesky_solve(rl[:, None], LS)[:, 0]
+    dx = u - torch.einsum("nim,m->ni", Y, dxl)
+    return torch.cat([dx, dxl.reshape(L, 3)]), sysg, ok & (info == 0)

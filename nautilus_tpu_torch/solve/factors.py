@@ -6,13 +6,18 @@ Residuals (same semantics as the JAX package):
   scaled by the translation/rotation weights;
 - normal: the source point moved into the target frame, projected onto the
   target normal and onto the (unrotated) source normal;
-- point: plain 2D point difference in the target frame.
+- point: plain 2D point difference in the target frame;
+- HITL: distance of each pose-transformed point to a human-drawn segment
+  that is itself moved by a free SE(2) line pose.
+
+The dof vector is x [N + L, 3]: N node poses, then L HITL line poses.
 
 Assembly writes H = J^T J and g = J^T r straight into the block band (3x3
 blocks, half-bandwidth w) that solve/band.py factors.  Correspondence
 factors accumulate by the delta-major pair order as contiguous slice adds;
 odometry (and in-band loop closures) scatter into the band; long-range
-loop closures become Woodbury columns U with H_lr = U U^T.
+loop closures become Woodbury columns U with H_lr = U U^T; HITL factors
+couple nodes to line poses through the dense border C, E, gl.
 
 ``analytic="moments"`` (the solver's default) reduces J^T J and J^T r of
 the correspondence factors to per-point scalar sums without forming J;
@@ -70,19 +75,48 @@ class Correspondences(NamedTuple):
     mask: torch.Tensor      # [Q, S] bool (slot and pair validity)
 
 
+class HitlFactors(NamedTuple):
+    """[R, K] HITL colinearity participations (one row per constrained pose).
+
+    Each row ties one node's on-line points to one free line pose.  As in
+    the reference, the *line A* segment serves the poses of both lines: the
+    constraint merges the two walls into one."""
+
+    node: torch.Tensor        # [R] int64 node index
+    line: torch.Tensor        # [R] int64 dof index of the line pose (>= N)
+    points: torch.Tensor      # [R, K, 2] points in the node's scan frame
+    mask: torch.Tensor        # [R, K] bool
+    seg_start: torch.Tensor   # [R, 2] segment ends in the line pose's frame
+    seg_end: torch.Tensor     # [R, 2]
+
+
+def empty_hitl(device, dtype=torch.float32) -> HitlFactors:
+    return HitlFactors(
+        node=torch.zeros((0,), dtype=torch.int64, device=device),
+        line=torch.zeros((0,), dtype=torch.int64, device=device),
+        points=torch.zeros((0, 1, 2), dtype=dtype, device=device),
+        mask=torch.zeros((0, 1), dtype=torch.bool, device=device),
+        seg_start=torch.zeros((0, 2), dtype=dtype, device=device),
+        seg_end=torch.zeros((0, 2), dtype=dtype, device=device))
+
+
 class FactorGraph(NamedTuple):
     odom: OdomFactors
     planar: Correspondences   # -> normal residuals
     edge: Correspondences     # -> point residuals
+    hitl: Optional[HitlFactors] = None   # -> point-to-segment residuals
 
 
 class BandedSystem(NamedTuple):
-    """Normal equations in block-band form (solve/band.py)."""
+    """Normal equations in block-band(+border) form (solve/band.py)."""
 
     diag: torch.Tensor             # [N, 3, 3] block (i, i)
     band: torch.Tensor             # [w, N, 3, 3] band[d-1][i] = block (i, i-d)
     g: torch.Tensor                # [N, 3]
     U: Optional[torch.Tensor] = None   # [3N, R] long-range Woodbury columns
+    C: Optional[torch.Tensor] = None   # [N, L, 3, 3] node-line border blocks
+    E: Optional[torch.Tensor] = None   # [L, 3, 3] line-line diagonal blocks
+    gl: Optional[torch.Tensor] = None  # [L, 3] gradient on line dofs
 
     @property
     def n(self):
@@ -95,6 +129,10 @@ class BandedSystem(NamedTuple):
     @property
     def rank_lr(self):
         return 0 if self.U is None else self.U.shape[1]
+
+    @property
+    def num_lines(self):
+        return 0 if self.C is None else self.C.shape[1]
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +168,15 @@ def point_residual(pose_s, pose_t, src_pts, tgt_pts, mask):
     return (tgt_pts - p_t) * mask[..., None].to(pose_s.dtype)
 
 
+def hitl_residual(pose_node, pose_line, points, mask, seg_start, seg_end):
+    """[K] point-to-segment distances of one HITL row: the node's points in
+    the world against the segment moved by the line pose."""
+    world = geo.pose_transform_points(pose_node, points)
+    a = geo.pose_transform_points(pose_line, seg_start)
+    b = geo.pose_transform_points(pose_line, seg_end)
+    return geo.distance_to_line_segment(world, a, b) * mask.to(pose_node.dtype)
+
+
 def total_cost(x, graph: FactorGraph):
     """Ceres-convention total cost: 0.5 * sum of squared residuals."""
     acc = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -146,6 +193,11 @@ def total_cost(x, graph: FactorGraph):
     if ed.src.shape[0]:
         r = point_residual(x[ed.src], x[ed.tgt], ed.src_pts, ed.tgt_pts,
                            ed.mask)
+        acc = acc + torch.sum(r * r)
+    h = graph.hitl
+    if h is not None and h.node.shape[0]:
+        r = torch.vmap(hitl_residual)(x[h.node], x[h.line], h.points, h.mask,
+                                      h.seg_start, h.seg_end)
         acc = acc + torch.sum(r * r)
     return 0.5 * acc
 
@@ -231,6 +283,29 @@ def _linearize_odom(pose_i, pose_j, trans, rot, mask, tw, rw):
         torch.stack([z, z, rw, z, z, -rw], -1),
     ], dim=-2)                                   # [F, 3, 6]
     return r, rows * m[:, None, None]
+
+
+def hitl_factor_spec(graph: FactorGraph):
+    """(idx_a, idx_b, residual_fn, data) of the HITL batch (None if empty)."""
+    h = graph.hitl
+    if h is None or h.node.shape[0] == 0:
+        return None
+    return (h.node, h.line, hitl_residual,
+            (h.points, h.mask, h.seg_start, h.seg_end))
+
+
+def linearize_two_pose_jacfwd(x, idx_a, idx_b, item_fn, data):
+    """(r [Q, m], J [Q, m, 6]) of a two-pose residual by forward-mode
+    autodiff, for residuals without a closed form (HITL's clamped
+    point-to-segment distance), as the JAX package does."""
+    p6 = torch.cat([x[idx_a], x[idx_b]], dim=-1)                  # [Q, 6]
+
+    def f(p, *d):
+        return item_fn(p[:3], p[3:], *d).reshape(-1)
+
+    r = torch.vmap(f)(p6, *data)
+    J = torch.vmap(torch.func.jacfwd(f))(p6, *data)
+    return r, J
 
 
 def _jtj(r, J):
@@ -439,15 +514,41 @@ def lowrank_factor_columns(x, lr: OdomFactors, n: int):
     return U, g_lr, cost
 
 
+def _hitl_border(lv, gd, cost, x, graph: FactorGraph, n: int, L: int):
+    """Accumulate the HITL factors: node-node blocks into the band diagonal,
+    node-line blocks into the dense border C, line-line blocks into the
+    block-diagonal E.  Returns (lv, gd, cost, C, E, gl)."""
+    dt, dev = x.dtype, x.device
+    C = torch.zeros((n, L, 3, 3), dtype=dt, device=dev)
+    E = torch.zeros((L, 3, 3), dtype=dt, device=dev)
+    gl = torch.zeros((L, 3), dtype=dt, device=dev)
+    spec = hitl_factor_spec(graph)
+    if spec is None:
+        return lv, gd, cost, C, E, gl
+    node, line = spec[0], spec[1] - n
+    r, J = linearize_two_pose_jacfwd(x, *spec)
+    Hq, gq = _jtj(r, J)
+    cost = cost + 0.5 * torch.sum(r * r)
+    lv = lv.index_put((torch.zeros_like(node), node), Hq[:, :3, :3],
+                      accumulate=True)
+    C = C.index_put((node, line), Hq[:, :3, 3:], accumulate=True)
+    E = E.index_put((line,), Hq[:, 3:, 3:], accumulate=True)
+    gd = gd.index_put((node,), gq[:, :3], accumulate=True)
+    gl = gl.index_put((line,), gq[:, 3:], accumulate=True)
+    return lv, gd, cost, C, E, gl
+
+
 def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
                            analytic="moments", lr: OdomFactors = None):
-    """Normal equations in block-band form: (BandedSystem, cost).
+    """Normal equations in block-band(+border) form: (BandedSystem, cost).
 
-    Every odometry / in-band loop-closure factor must satisfy
-    |i - j| <= layout.w; long-range loop closures go in through ``lr`` as
-    Woodbury columns.
+    x is [N + L, 3] with L HITL line poses after the N nodes.  Every
+    odometry / in-band loop-closure factor must satisfy |i - j| <= layout.w;
+    long-range loop closures go in through ``lr`` as Woodbury columns; the
+    line poses enter as the border C, E, gl.
     """
     n = layout.n
+    L = x.shape[0] - n
     diag, band, gd, cost = _accumulate_banded(x, graph, layout, analytic)
     lv = torch.cat([diag[None], band])
     lv, gd, cost = _scatter_band_factor(lv, gd, cost, x, graph.odom)
@@ -456,7 +557,11 @@ def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
         U, g_lr, cost_lr = lowrank_factor_columns(x, lr, n)
         gd = gd + g_lr
         cost = cost + cost_lr
-    return BandedSystem(diag=lv[0], band=lv[1:], g=gd, U=U), cost
+    C = E = gl = None
+    if L:
+        lv, gd, cost, C, E, gl = _hitl_border(lv, gd, cost, x, graph, n, L)
+    return BandedSystem(diag=lv[0], band=lv[1:], g=gd, U=U, C=C, E=E,
+                        gl=gl), cost
 
 
 def _band_to_dense(diag, band, layout: BandLayout):

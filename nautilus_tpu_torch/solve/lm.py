@@ -45,7 +45,7 @@ class LMParams(NamedTuple):
 
 
 class LMResult(NamedTuple):
-    x: torch.Tensor       # [N, 3] solved poses
+    x: torch.Tensor       # [N + L, 3] solved node and line poses
     cost: float           # final cost
     initial_cost: float
     iterations: int       # accepted + rejected LM steps taken
@@ -100,8 +100,16 @@ def lm_loop_banded(x0, assemble_fn, fixed_dof,
         dx, sysg, ok = solve_damped_banded(sys, fixed_dof, radius, params)
         x_new = x + dx
         sys_new, new_cost = assemble_fn(x_new)
-        model_decrease = -(torch.sum(sysg.g * dx)
-                           + 0.5 * torch.sum(dx * band_matvec(sysg, dx)))
+        # Model decrease of 0.5 |r + J dx|^2: -(g.dx + 0.5 dx.H.dx), with the
+        # line-pose rows (after the N nodes) summed apart, as in JAX.
+        n = sysg.n
+        Hdx = band_matvec(sysg, dx)
+        gdx = torch.sum(sysg.g * dx[:n])
+        dHd = torch.sum(dx[:n] * Hdx[:n])
+        if sysg.num_lines:
+            gdx = gdx + torch.sum(sysg.gl * dx[n:])
+            dHd = dHd + torch.sum(dx[n:] * Hdx[n:])
+        model_decrease = -(gdx + 0.5 * dHd)
         finite = ok & torch.all(torch.isfinite(dx)) & torch.isfinite(new_cost)
         accept, radius, divisor, converged = _trust_region_update(
             cost, new_cost, model_decrease, finite, radius, divisor,

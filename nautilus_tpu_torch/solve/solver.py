@@ -8,6 +8,9 @@ nautilus_tpu/solve/solver.py, band path).
 - ``solve_max_window``: one solve at the max window, used after loop
   closures are applied.
 
+The dof vector is [solution; line_poses]: N node poses, then one free line
+pose per HITL constraint (L of them, no padding).  Pose 0 is the gauge.
+
 Only band-eligible graphs are ported: every odometry factor within the
 window band, long-range loop closures as Woodbury columns (up to
 lr_factor_cap).  Anything else raises NotImplementedError naming the
@@ -26,7 +29,8 @@ import torch
 from nautilus_tpu_torch.core.problem import SLAMState
 from nautilus_tpu_torch.solve import correspond
 from nautilus_tpu_torch.solve.factors import (BandLayout, FactorGraph,
-                                              OdomFactors, make_odom_factors)
+                                              HitlFactors, OdomFactors,
+                                              make_odom_factors)
 from nautilus_tpu_torch.solve.lm import LMParams, LMResult, lm_solve_banded
 
 
@@ -87,10 +91,6 @@ class Solver:
                  linear_solver: str = "auto"):
         """linear_solver: 'band' or 'auto' (= band when eligible).  The
         dense and CG solvers are not ported."""
-        if state.hitl_constraints or len(state.line_poses):
-            raise NotImplementedError(
-                "HITL constraints are not ported yet (ROADMAP.md section 1, "
-                "'HITL and border')")
         self.state = state
         self.config = config
         self.device = state.problem.device
@@ -151,12 +151,13 @@ class Solver:
         return "band"
 
     def _current_x(self) -> torch.Tensor:
-        return torch.as_tensor(self.state.solution, dtype=torch.float32,
-                               device=self.device)
+        """[N + L, 3] dof vector: node poses, then HITL line poses."""
+        x = np.concatenate([self.state.solution, self.state.line_poses])
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _fixed_mask(self) -> torch.Tensor:
-        mask = torch.zeros((3 * self.state.num_nodes,), dtype=torch.bool,
-                           device=self.device)
+        n_dof = 3 * (self.state.num_nodes + len(self.state.line_poses))
+        mask = torch.zeros((n_dof,), dtype=torch.bool, device=self.device)
         mask[0:3] = True  # gauge: pose 0 constant
         return mask
 
@@ -180,10 +181,18 @@ class Solver:
             np.asarray([f[4] for f in lr], np.float64),
             np.asarray([f[5] for f in lr], np.float64), self.device)
 
+    def _hitl_factors(self) -> Optional[HitlFactors]:
+        if not self.state.hitl_constraints:
+            return None
+        from nautilus_tpu_torch.solve.hitl import build_hitl_factors
+        return build_hitl_factors(self.state)
+
     def build_graph(self, x, window, optimization_type: str = "feature",
-                    odom: Optional[OdomFactors] = None) -> FactorGraph:
-        """Factor graph at solution x for one window size: planar matches
-        feed normal residuals, edge matches point residuals."""
+                    odom: Optional[OdomFactors] = None,
+                    hitl: Optional[HitlFactors] = None) -> FactorGraph:
+        """Factor graph at x [N + L, 3] for one window size: planar matches
+        feed normal residuals, edge matches point residuals, HITL rows
+        point-to-segment residuals (built from the state unless given)."""
         if optimization_type != "feature":
             raise NotImplementedError(
                 f"optimization_type={optimization_type!r} is not ported yet "
@@ -191,11 +200,13 @@ class Solver:
         cfg = self.config
         problem = self.state.problem
         outlier = float(cfg.outlier_threshold)
-        args = (problem, x, self._pair_src, self._pair_tgt, window, outlier)
+        args = (problem, x[:problem.num_nodes], self._pair_src,
+                self._pair_tgt, window, outlier)
         planar = correspond.associate(*args, feature="planar")
         edge = correspond.associate(*args, feature="edge")
         return FactorGraph(odom=self._odom_factors() if odom is None else odom,
-                           planar=planar, edge=edge)
+                           planar=planar, edge=edge,
+                           hitl=self._hitl_factors() if hitl is None else hitl)
 
     # -- solving ------------------------------------------------------------
 
@@ -206,9 +217,10 @@ class Solver:
         fixed = self._fixed_mask()
         odom = self._odom_factors()
         lr = self._long_range_factors()
+        hitl = self._hitl_factors()
         for window in range(w_min, w_max + 1):
             t0 = time.perf_counter()
-            graph = self.build_graph(x, window, odom=odom)
+            graph = self.build_graph(x, window, odom=odom, hitl=hitl)
             res: LMResult = lm_solve_banded(
                 x, graph, fixed, params=self.lm_params, layout=self._layout,
                 lr=lr)
@@ -241,4 +253,7 @@ class Solver:
         return self._solve_windows(w, w)
 
     def _writeback(self, x):
-        self.state.solution = x.detach().cpu().numpy().astype(np.float64)
+        host = x.detach().cpu().numpy().astype(np.float64)
+        n = self.state.num_nodes
+        self.state.solution = host[:n]
+        self.state.line_poses = host[n:]

@@ -1,5 +1,6 @@
-"""PyTorch port: the fused CSM coarse stage and the stage-major matcher
-against the JAX package (Pallas kernel in interpret mode)."""
+"""PyTorch port: the fused CSM coarse stage, the stage-major matcher and
+the pair-major matcher against the JAX package (Pallas kernel in interpret
+mode)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,10 +9,13 @@ import torch
 
 from nautilus_tpu.ingest.synthetic import make_problem
 from nautilus_tpu.kernels.csm import CSMParams as JParams
+from nautilus_tpu.kernels.csm import csm_match as jax_csm_match
 from nautilus_tpu.kernels.csm import csm_match_pairs as jax_match_pairs
 from nautilus_tpu.kernels.csm_pallas import fused_coarse_pallas
 from nautilus_tpu_torch.kernels import csm_coarse
-from nautilus_tpu_torch.kernels.csm import CSMParams, csm_match_pairs
+from nautilus_tpu_torch.kernels.csm import (CSMParams, csm_match,
+                                            csm_match_pairs)
+from nautilus_tpu_torch.kernels.csm_correlate import correlate
 
 
 def _coarse_inputs(seed=5, C=2, P=48, R=8, cells=16, noff=5):
@@ -97,3 +101,67 @@ def test_csm_match_pairs_matches_jax(pairs, coarse_f32):
                                rtol=0)
     np.testing.assert_allclose(ttr[:, 2], jtr[:, 2], atol=0.005 + 1e-6,
                                rtol=0)
+
+
+@pytest.mark.parametrize("coarse_f32", [False, True])
+def test_pair_engine_matches_jax(pairs, coarse_f32):
+    pts, msk, ss, tt, centers = pairs
+    kw = dict(scan_range=10.0, high_res=0.05, coarse_f32=coarse_f32)
+    js, jtr = jax_match_pairs(pts, msk, ss, tt, JParams(**kw),
+                              rotation_centers=centers, engine="pair")
+    before = correlate.launches
+    ts, ttr = csm_match_pairs(torch.tensor(pts), torch.tensor(msk), ss, tt,
+                              CSMParams(**kw), rotation_centers=centers,
+                              engine="pair", pair_chunk=4)
+    assert correlate.launches == before           # CPU: the plain version
+    assert ts.shape == (6,) and ttr.shape == (6, 3)
+    # The tolerances of test_csm_match_pairs_matches_jax above.
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(ttr[:, :2], jtr[:, :2], atol=0.05 + 1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(ttr[:, 2], jtr[:, 2], atol=0.005 + 1e-6,
+                               rtol=0)
+
+
+def test_csm_match_matches_jax(pairs):
+    """The single-pair GetTransformation contract, rotation window centred
+    away from zero."""
+    pts, msk, ss, tt, centers = pairs
+    kw = dict(scan_range=10.0, high_res=0.05)
+    s, t = int(ss[1]), int(tt[1])
+    js, jtr = jax_csm_match(jnp.asarray(pts[s]), jnp.asarray(msk[s]),
+                            jnp.asarray(pts[t]), jnp.asarray(msk[t]),
+                            JParams(**kw), float(centers[1]))
+    ts, ttr = csm_match(torch.tensor(pts[s]), torch.tensor(msk[s]),
+                        torch.tensor(pts[t]), torch.tensor(msk[t]),
+                        CSMParams(**kw), float(centers[1]))
+    assert ts.shape == () and ttr.shape == (3,)
+    np.testing.assert_allclose(float(ts), float(js), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(ttr[:2].numpy(), np.asarray(jtr)[:2],
+                               atol=0.05 + 1e-6, rtol=0)
+    np.testing.assert_allclose(float(ttr[2]), float(jtr[2]),
+                               atol=0.005 + 1e-6, rtol=0)
+
+
+def test_pair_engine_matches_stage_engine():
+    """As tests/test_loop_closure.py does for the JAX engines: the same
+    public entry point through both engines, on the same pairs."""
+    state, _ = make_problem(12, "office", num_beams=360, seed=9)
+    pts = torch.tensor(np.asarray(state.problem.points))
+    msk = torch.tensor(np.asarray(state.problem.points_mask))
+    src = np.array([1, 2, 3, 5, 9])
+    tgt = np.array([0, 0, 1, 4, 8])
+    centers = np.asarray(state.solution[src, 2] - state.solution[tgt, 2],
+                         np.float32)
+    params = CSMParams(scan_range=10.0, high_res=0.05)
+    s1, t1 = csm_match_pairs(pts, msk, src, tgt, params,
+                             rotation_centers=centers, engine="pair",
+                             pair_chunk=2)
+    s2, t2 = csm_match_pairs(pts, msk, src, tgt, params,
+                             rotation_centers=centers, engine="stage")
+    assert s1.shape == (5,) and t1.shape == (5, 3)
+    # The JAX engines agree to 1e-5; so do the port's.
+    np.testing.assert_allclose(s1, s2, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t1, t2, atol=1e-5)
+    with pytest.raises(ValueError, match="engine"):
+        csm_match_pairs(pts, msk, src, tgt, params, engine="grouped")

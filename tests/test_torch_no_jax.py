@@ -23,6 +23,15 @@ state, gt = make_problem(8, "room", num_beams=180, seed=0)
 solver = Solver(state, cfg)
 stats = solver.solve_slam()
 report = solve_auto_lc(solver, apply=True, verbose=False)
+from nautilus_tpu_torch.kernels.csm import CSMParams, csm_match_pairs
+scores, _ = csm_match_pairs(state.problem.points, state.problem.points_mask,
+                            [1, 2], [0, 1], CSMParams(scan_range=6.0),
+                            engine="pair")
+assert np.all(np.isfinite(scores))
+from nautilus_tpu_torch.cli import apply_hitl_line
+apply_hitl_line(solver.__class__(state, cfg.replace(hitl_line_width=0.3)),
+                "-5 -5 5 -5 -5 5 5 5".split(), verbose=False)
+assert len(state.hitl_constraints) == 1 and state.line_poses.shape == (1, 3)
 assert np.all(np.isfinite(state.solution)) and state.solution.shape == (8, 3)
 bad = [m for m in sys.modules
        if m == "nautilus_tpu" or m.startswith("nautilus_tpu.")]

@@ -44,8 +44,7 @@ def test_cli_pose_file_matches_jax(tmp_path):
                                np.stack(list(jp.values())), atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("flag", ["--hitl_replay=x", "--vectorize",
-                                  "--interactive", "--devices=2"])
+@pytest.mark.parametrize("flag", ["--vectorize", "--ros", "--devices=2"])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli.main(["--config_file", "x.lua", flag])
