@@ -13,12 +13,16 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 3. fused coarse kernel against plain: the kernel and its plain PyTorch
    version on the same inputs at the benchmark shapes (C=8, and the main
    path's chunk of PAIR_CHUNK pairs) and at the gdc_2020 scan range, with
-   max abs error, argmax agreement and CUDA-event times;
+   max abs error, argmax agreement, CUDA-event times, and the bound
+   (float32 adds; and, printed beside it, the time the adds' table reads
+   take at shared memory's rate) with the kernel's share of it;
 4. correlation kernel against plain: the same at the pair engine's shapes
    (reference params, bench.py's 12 m range, gdc_2020's 8.5 m range, a
-   batch of PAIR_BATCH pairs) with rasters of rotated points, and a table
-   too large for shared memory with integer values, which must agree bit
-   for bit;
+   batch of PAIR_BATCH pairs) with rasters of rotated points, with the
+   bound (HBM bytes) and the time of one PyTorch call that computes the
+   same function, a grouped F.conv2d (cuDNN, TF32 off, cudnn.benchmark
+   off and on; the port never calls it), and a table too large for shared
+   memory with integer values, which must agree bit for bit;
 5. small-input reference: the port's slice (solve, auto-LC, one HITL step)
    on the card against the same slice on the CPU (the CPU path is held to
    the JAX package by the tests);
@@ -37,8 +41,8 @@ Each path (6, 7, 8) starts with every launch count at 0 and reads them when
 it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
-their path, times at the main path's shapes, the largest error over every
-case).
+their path; times, bound and library call at the main path's shapes; the
+largest error over every case).
 """
 
 import dataclasses
@@ -63,6 +67,18 @@ HITL_LINES = ((-19, -15), (19, -15), (-19, -14.5), (19, -14.5))
 BENCH_R05 = {"candidates": 22, "gated": 49, "accepted": 27,
              "final_cost": 92.4868, "ate_odometry": 0.3303,
              "ate_solved": 0.5621, "ate_closed": 0.1182}
+
+
+# The least time one NVIDIA H100 SXM could take for a kernel's work (NVIDIA's
+# data sheet, dense rates, at the full 700 W power limit): 3.35 TB/s of HBM;
+# 67 TFLOP/s in float32 outside the tensor cores, which counts a fused
+# multiply-add as two operations, so 33.5e12 lone adds per second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+F32_ADDS_PER_S = F32_FLOPS_PER_S / 2
+# Shared memory moves 128 bytes per clock on each of 132 SMs; 1.98 GHz is
+# the card's highest SM clock.
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 
 
 def fail(msg):
@@ -119,12 +135,13 @@ def _ring_points(rng, B, P, scan_range, res):
     return pts
 
 
-def kernel_case(dev, scan_range, C=8, P=768, seed=0):
-    """Kernel vs plain on coarse-stage inputs built the way the matcher
-    builds them, with ~10% masked points and points on cell edges."""
+def coarse_inputs(dev, scan_range, C, P, seed):
+    """Fused coarse stage inputs built the way the matcher builds them, with
+    ~10% masked points and points on cell edges: (parked, thetas, tables,
+    keyword arguments)."""
     import numpy as np
     import torch
-    from nautilus_tpu_torch.kernels import csm, csm_coarse
+    from nautilus_tpu_torch.kernels import csm
 
     params = csm.CSMParams(scan_range=scan_range)
     res = params.low_res
@@ -144,36 +161,136 @@ def kernel_case(dev, scan_range, C=8, P=768, seed=0):
     thetas[:, 0] = 0.0
     thetas = torch.as_tensor(thetas, device=dev)
     kw = dict(cells=cells, noff=noff, halfwidth=scan_range, res=res)
-    T = tables.shape[1]
+    return parked, thetas, tables, kw
 
-    out_k = csm_coarse.fused_coarse(parked, thetas, tables, **kw)
+
+def bound_ms(nbytes, t_ops_ms):
+    """(least ms, "bytes" or "operations"): the larger of the bytes' time at
+    the HBM rate and the operations' time ``t_ops_ms``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops_ms), ("bytes" if t_bytes >= t_ops_ms
+                                    else "operations")
+
+
+def fused_coarse_work(parked, thetas, tables, *, cells, noff, halfwidth,
+                      res):
+    """Bytes and float32 adds of the fused coarse stage on these inputs (the
+    points binned as its plain version bins them: one add per in-raster
+    point and offset), its bound, and the time the adds' table reads (one
+    4-byte word each) take at shared memory's rate."""
+    import torch
+    res_t = torch.tensor(res, dtype=torch.float32, device=parked.device)
+    ct = torch.cos(thetas)[..., None]
+    st = torch.sin(thetas)[..., None]
+    x, y = parked[:, None, :, 0], parked[:, None, :, 1]
+    ix = torch.floor((ct * x - st * y + halfwidth) / res_t)
+    iy = torch.floor((st * x + ct * y + halfwidth) / res_t)
+    inside = int(((ix >= 0) & (ix < cells) & (iy >= 0) & (iy < cells)).sum())
+    C, R = thetas.shape
+    adds = inside * noff * noff
+    nbytes = 4 * (parked.numel() + thetas.numel() + tables.numel()
+                  + C * R * noff * noff)
+    ms, by = bound_ms(nbytes, adds / F32_ADDS_PER_S * 1e3)
+    return {"bytes": nbytes, "adds": adds, "in_raster": inside,
+            "bound_ms": ms, "bound_by": by,
+            "smem_reads_ms": 4 * adds / SMEM_BYTES_PER_S * 1e3}
+
+
+def correlate_work(tables, rasters):
+    """Bytes and multiply-adds of the correlation of tables [B, H, W] with
+    rasters [B, R, kh, kw] (one per non-zero raster cell and offset), and
+    its bound."""
+    B, H, W = tables.shape
+    R, kh, kw = rasters.shape[1:]
+    n_off = (H - kh + 1) * (W - kw + 1)
+    nnz = int((rasters != 0).sum())
+    nbytes = 4 * (tables.numel() + rasters.numel() + B * R * n_off)
+    ms, by = bound_ms(nbytes, 2 * nnz * n_off / F32_FLOPS_PER_S * 1e3)
+    return {"bytes": nbytes, "fmas": nnz * n_off, "nnz": nnz,
+            "bound_ms": ms, "bound_by": by}
+
+
+def kernel_case(dev, scan_range, C=8, P=768, seed=0, reps=20):
+    """Fused coarse kernel vs plain on coarse_inputs: its record, with the
+    kernel's call under "run"."""
+    import torch
+    from nautilus_tpu_torch.kernels import csm_coarse
+
+    parked, thetas, tables, kw = coarse_inputs(dev, scan_range, C, P, seed)
+    cells, noff = kw["cells"], kw["noff"]
+    n_rot, T = thetas.shape[1], tables.shape[1]
+
+    def run():
+        return csm_coarse.fused_coarse(parked, thetas, tables, **kw)
+
+    out_k = run()
     out_p = csm_coarse.fused_coarse_reference(parked, thetas, tables, **kw)
     torch.cuda.synchronize()
     err, close, argmax_ok, n_same = agreement(out_k, out_p)
-    ms = cuda_ms(lambda: csm_coarse.fused_coarse(parked, thetas, tables, **kw),
-                 20)
+    ms = cuda_ms(run, reps)
     plain_ms = cuda_ms(lambda: csm_coarse.fused_coarse_reference(
         parked, thetas, tables, **kw), 5)
-    smem = csm_coarse.table_in_shared_memory(T, P)
+    work = fused_coarse_work(parked, thetas, tables, **kw)
     print(f"  scan_range={scan_range} C={C} P={P} R={n_rot} cells={cells} "
-          f"noff={noff} T={T} table_in_smem={smem}: max_abs_err={err!r} "
+          f"noff={noff} T={T}: max_abs_err={err!r} "
           f"allclose(rtol={RTOL},atol={ATOL})={close} "
           f"argmax_equal={n_same}/{C} kernel_ms={ms!r} plain_ms={plain_ms!r}",
           flush=True)
+    print(f"    bound_ms={work['bound_ms']!r} ({work['bound_by']}: "
+          f"{work['adds']} float32 adds at {F32_ADDS_PER_S!r}/s, "
+          f"{work['bytes']} bytes) share_of_bound={work['bound_ms'] / ms!r}; "
+          f"computed ceiling of the adds' table reads at shared memory's "
+          f"rate {work['smem_reads_ms']!r} ms (share "
+          f"{work['smem_reads_ms'] / ms!r}); library_ms=None (no PyTorch "
+          f"call rotates, rasters and correlates)", flush=True)
     if not close:
         fail(f"kernel disagrees with plain version (max abs err {err})")
     if not argmax_ok:
         fail("kernel argmax differs from the plain version's beyond a tie")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"kernel": "fused_coarse", "scan_range": scan_range, "C": C,
+            "R": n_rot, "T": T, "in_raster": work["in_raster"],
+            "bytes": work["bytes"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"],
+            "share_of_bound": work["bound_ms"] / ms,
+            "smem_reads_ms": work["smem_reads_ms"], "library_ms": None,
+            "run": run}
 
 
-def correlate_case(dev, scan_range, B, seed):
-    """Correlation kernel vs plain on the pair engine's inputs: log tables
-    from build_tables (rounded through bf16) and rasters of the rotated
-    source points, built as csm._search_stage builds them."""
+def library_correlate_ms(tables, rasters):
+    """The yardstick: one grouped F.conv2d (cuDNN) computing the same
+    correlation, TF32 off, the faster of cudnn.benchmark off and on; and
+    its largest difference from the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from nautilus_tpu_torch.kernels import csm_correlate
+    B, H, W = tables.shape
+    R, kh, kw = rasters.shape[1:]
+
+    def call():
+        return F.conv2d(tables.view(1, B, H, W),
+                        rasters.view(B * R, 1, kh, kw), groups=B)
+
+    ref = csm_correlate.correlate_reference(tables, rasters)
+    times, err = {}, 0.0
+    try:
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            out = call().view(B, R, H - kh + 1, W - kw + 1)
+            err = max(err, float((out - ref).abs().max()))
+            times[bench] = cuda_ms(call, 5)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    return min(times.values()), times[False], times[True], err
+
+
+def correlate_inputs(dev, scan_range, B, seed):
+    """The pair engine's correlation inputs: log tables from build_tables
+    (rounded through bf16) and rasters of the rotated source points, built
+    as csm._search_stage builds them: (tables, rasters)."""
     import numpy as np
     import torch
-    from nautilus_tpu_torch.kernels import csm, csm_correlate
+    from nautilus_tpu_torch.kernels import csm
 
     params = csm.CSMParams(scan_range=scan_range)
     res = params.low_res
@@ -196,26 +313,56 @@ def correlate_case(dev, scan_range, B, seed):
                           .reshape(B * n_rot, P),
                           scan_range, res, cells).reshape(B, n_rot, cells,
                                                           cells)
-    H = tables.shape[1]
-    out_k = csm_correlate.correlate(tables, rasters)
+    return tables, rasters
+
+
+def correlate_case(dev, scan_range, B, seed, reps=10):
+    """Correlation kernel vs plain on correlate_inputs: its record, with the
+    kernel's call under "run"."""
+    import torch
+    from nautilus_tpu_torch.kernels import csm_correlate
+
+    tables, rasters = correlate_inputs(dev, scan_range, B, seed)
+    H, cells, n_rot = tables.shape[1], rasters.shape[2], rasters.shape[1]
+
+    def run():
+        return csm_correlate.correlate(tables, rasters)
+
+    out_k = run()
     out_p = csm_correlate.correlate_reference(tables, rasters)
     torch.cuda.synchronize()
     err, close, argmax_ok, n_same = agreement(out_k, out_p)
-    ms = cuda_ms(lambda: csm_correlate.correlate(tables, rasters), 10)
+    ms = cuda_ms(run, reps)
     plain_ms = cuda_ms(lambda: csm_correlate.correlate_reference(
         tables, rasters), 5)
-    smem = csm_correlate.table_in_shared_memory(H, H)
-    print(f"  scan_range={scan_range} B={B} R={n_rot} H=W={H} kh=kw={cells} "
-          f"table_in_smem={smem}: max_abs_err={err!r} "
+    lib_ms, lib_off, lib_on, lib_err = library_correlate_ms(tables, rasters)
+    work = correlate_work(tables, rasters)
+    print(f"  scan_range={scan_range} B={B} R={n_rot} H=W={H} kh=kw={cells}: "
+          f"max_abs_err={err!r} "
           f"allclose(rtol={RTOL},atol={ATOL})={close} "
           f"argmax_equal={n_same}/{B} kernel_ms={ms!r} plain_ms={plain_ms!r}",
           flush=True)
+    print(f"    bound_ms={work['bound_ms']!r} ({work['bound_by']}: "
+          f"{work['bytes']} bytes at {HBM_BYTES_PER_S!r}/s, "
+          f"{work['fmas']} multiply-adds) "
+          f"share_of_bound={work['bound_ms'] / ms!r}; library_ms={lib_ms!r} "
+          f"(grouped conv2d, cudnn.benchmark off {lib_off!r} / on "
+          f"{lib_on!r}, max abs diff from plain {lib_err!r})", flush=True)
     if not close:
         fail(f"correlation kernel disagrees with plain (max abs err {err})")
     if not argmax_ok:
         fail("correlation argmax differs from the plain version's beyond a "
              "tie")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"kernel": "correlate", "scan_range": scan_range, "B": B,
+            "R": n_rot, "H": H, "kh": cells, "nnz": work["nnz"],
+            "bytes": work["bytes"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"],
+            "share_of_bound": work["bound_ms"] / ms,
+            "achieved_GBps": work["bytes"] / ms / 1e6, "library_ms": lib_ms,
+            "library_ms_benchmark_off": lib_off,
+            "library_ms_benchmark_on": lib_on, "library_max_abs_err": lib_err,
+            "run": run}
 
 
 def correlate_global_case(dev, B=2, H=240, R=32, cells=226, seed=3):
@@ -240,7 +387,7 @@ def correlate_global_case(dev, B=2, H=240, R=32, cells=226, seed=3):
     out_k = csm_correlate.correlate(tables, rasters)
     out_p = csm_correlate.correlate_reference(tables, rasters)
     torch.cuda.synchronize()
-    smem = csm_correlate.table_in_shared_memory(H, H)
+    smem = csm_correlate.launch_plan(tables, rasters).table_in_smem
     exact = bool(torch.equal(out_k, out_p))
     err = float((out_k - out_p).abs().max())
     print(f"  integer table H=W={H} B={B} R={R} kh=kw={cells} "
@@ -600,19 +747,26 @@ def main():
         fail("jax or the JAX package was imported")
     print(f"total wall {time.perf_counter() - t_all!r} s", flush=True)
 
+    def record(name, source, replaces, launches, err, shape, bound_kind):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": shape["ms"],
+                "plain_ms": shape["plain_ms"], "bound_ms": shape["bound_ms"],
+                "bound_by": shape["bound_by"], "bound_kind": bound_kind,
+                "share_of_bound": shape["share_of_bound"],
+                "library_ms": shape["library_ms"]}
+
     print(json.dumps({"kernels": [
-        {"name": "fused_coarse", "route": "cuda",
-         "source": "nautilus_tpu_torch/kernels/csrc/csm_coarse.cu",
-         "replaces": "nautilus_tpu/kernels/csm_pallas.py:82",
-         "launches": launches,
-         "max_abs_err": max(c["max_abs_err"] for c in cases),
-         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]},
-        {"name": "correlate", "route": "cuda",
-         "source": "nautilus_tpu_torch/kernels/csrc/csm_correlate.cu",
-         "replaces": "nautilus_tpu/kernels/csm_pallas.py:43",
-         "launches": pair_counts["correlate"],
-         "max_abs_err": corr_err,
-         "ms": corr_shape["ms"], "plain_ms": corr_shape["plain_ms"]}]}))
+        record("fused_coarse",
+               "nautilus_tpu_torch/kernels/csrc/csm_coarse.cu",
+               "nautilus_tpu/kernels/csm_pallas.py:82", launches,
+               max(c["max_abs_err"] for c in cases), main_shape,
+               "float32 adds at 33.5e12/s (67 TFLOP/s counts an FMA as 2)"),
+        record("correlate",
+               "nautilus_tpu_torch/kernels/csrc/csm_correlate.cu",
+               "nautilus_tpu/kernels/csm_pallas.py:43",
+               pair_counts["correlate"], corr_err, corr_shape,
+               "HBM bytes at 3.35 TB/s")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

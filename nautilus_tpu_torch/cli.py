@@ -23,8 +23,6 @@ import sys
 import time
 from pathlib import Path
 
-import torch
-
 # Flags of the JAX CLI that the port does not have yet (ROADMAP.md).
 _NOT_PORTED = {"--vectorize": "vectorize and checkpoint", "--ros": "viz",
                "--devices": "sharded"}
@@ -113,12 +111,14 @@ def main(argv=None) -> int:
     ap.add_argument("--interactive", action="store_true",
                     help="stdin command loop (hitl/write/quit)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+                    help="torch device (default: cuda; raises without a "
+                         "card, so the CPU runs only with --device cpu)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     verbose = not args.quiet
 
     from nautilus_tpu_torch.core.luaconf import load_config, validate_config
+    from nautilus_tpu_torch.core.problem import default_device
     from nautilus_tpu_torch.io.poses import load_solution, write_poses
     from nautilus_tpu_torch.solve.solver import Solver
 
@@ -128,8 +128,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "bag ingest is not yet ported (ROADMAP.md section 1, 'bag "
             "ingest'); pass --synthetic")
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = default_device(args.device)
 
     state = build_state(cfg, args, device, verbose=verbose)
     if args.solution_poses:

@@ -23,6 +23,21 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a torch device; None means the CUDA card.
+
+    The port's entry points run on the card unless the caller names the CPU
+    (``device="cpu"``, ``--device cpu``): without a card they raise rather
+    than fall back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available: pass device='cpu' "
+                           "(--device cpu on the command line) to run on "
+                           "the CPU")
+    return torch.device("cuda")
+
+
 class SLAMProblem(NamedTuple):
     """Device tensors for an N-node pose graph.
 

@@ -14,7 +14,8 @@ from typing import Tuple
 
 import numpy as np
 
-from nautilus_tpu_torch.core.problem import RawNodes, pad_clouds
+from nautilus_tpu_torch.core.problem import (RawNodes, default_device,
+                                             pad_clouds)
 
 
 def make_world(kind: str = "office") -> np.ndarray:
@@ -169,13 +170,16 @@ def _state_from_raw(raw: RawNodes, device):
     return SLAMState.from_problem(problem, timestamps=raw.timestamps)
 
 
-def reverse_traversal_problem(seed: int = 3, device="cpu"):
+def reverse_traversal_problem(seed: int = 3, device=None):
     """A path re-traversed in the OPPOSITE direction, the hard loop-closure
     case the angle-seeded CSM exists for: a lead-in leg, a forward pass at
     heading 0 and a return pass at heading pi, slightly offset in y, in a
     box whose interior stubs break its 180-degree symmetry.  Forward-pass
-    nodes are 6..18, return-pass nodes 19..31.  Returns (state, gt).
+    nodes are 6..18, return-pass nodes 19..31.  ``device`` None means the
+    CUDA card (raises without one); pass "cpu" for the CPU.  Returns
+    (state, gt).
     """
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     half, span = 6.0, 4.5
     segs = [[[-half, -half], [half, -half]],
@@ -216,9 +220,11 @@ def reverse_traversal_problem(seed: int = 3, device="cpu"):
 
 
 def make_problem(num_nodes: int = 30, world_kind: str = "office",
-                 seed: int = 0, device="cpu", **kw):
+                 seed: int = 0, device=None, **kw):
     """Convenience: synthesize + preprocess + build the problem/state on
-    ``device``.  Returns (state, gt)."""
+    ``device`` (None means the CUDA card, and raises without one; pass
+    "cpu" for the CPU).  Returns (state, gt)."""
+    device = default_device(device)
     raw, gt = synthesize(num_nodes=num_nodes, world_kind=world_kind,
                          seed=seed, **kw)
     return _state_from_raw(raw, device), gt

@@ -9,6 +9,7 @@ starts one nvcc per source, all at once, and waits for them together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,8 +43,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``source``'s library is built, keyed by the source, the headers
+    beside it and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}_{digest}.so"
 
 
@@ -91,6 +97,10 @@ def build_all(sources: Iterable[Path]) -> List[Path]:
     return paths
 
 
+# Exported by every kernel library (csrc/csm_common.cuh).
+_LIMITS_FN = "nautilus_csm_device_limits"
+
+
 def load(source: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """The library of ``source`` (built if needed), loaded once per process.
 
@@ -100,9 +110,37 @@ def load(source: Path, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     lib = _libs.get(source)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([source])[0]))
+        signatures = {_LIMITS_FN: (ctypes.c_int,
+                                   [ctypes.POINTER(ctypes.c_int)] * 3),
+                      **signatures}
         for name, (restype, argtypes) in signatures.items():
             fn = getattr(lib, name)
             fn.restype = restype
             fn.argtypes = argtypes
         _libs[source] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def int_array(values: tuple):
+    """``values`` as a ctypes int array, made once per distinct tuple (the
+    kernels' launch plans repeat from call to call)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+_limits: Dict[int, tuple] = {}
+
+
+def device_limits(lib: ctypes.CDLL, index: int) -> tuple:
+    """(shared memory per block (opt-in), shared memory per SM, SM count) of
+    CUDA card ``index``, read once per card through a kernel library."""
+    if index not in _limits:
+        import torch
+        vals = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(index):
+            rc = getattr(lib, _LIMITS_FN)(*map(ctypes.byref, vals))
+        if rc != 0:
+            raise RuntimeError(f"could not read the limits of CUDA card "
+                               f"{index}: CUDA error {rc}")
+        _limits[index] = tuple(v.value for v in vals)
+    return _limits[index]

@@ -23,15 +23,15 @@ import ctypes
 
 import torch
 
-from nautilus_tpu_torch.kernels import _build
+from nautilus_tpu_torch.kernels import _build, plan
 
 SOURCE = _build.CSRC / "csm_coarse.cu"
-MAX_OFFSETS = 256          # one thread per offset (kThreads in the source)
+MAX_OFFSETS = plan.MAX_ROWS   # noff: offset rows and columns
 _SIGNATURES = {
     "nautilus_csm_fused_coarse": (
-        ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "nautilus_csm_smem_limit": (ctypes.c_int, []),
+        ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]),
 }
 
 
@@ -39,9 +39,13 @@ def _load():
     return _build.load(SOURCE, _SIGNATURES)
 
 
-def table_in_shared_memory(T: int, P: int) -> bool:
-    """Whether the kernel stages a [T, T] table in shared memory (CUDA)."""
-    return (T * T + 3 * P) * 4 <= _load().nautilus_csm_smem_limit()
+def launch_plan(parked_pts, thetas, tables, noff: int) -> plan.Plan:
+    """The kernel's launch plan for these CUDA tensors
+    (kernels/plan.py:coarse_plan)."""
+    C, P, _ = parked_pts.shape
+    limits = _build.device_limits(_load(), parked_pts.device.index)
+    return plan.coarse_plan(C, P, thetas.shape[1], tables.shape[1], noff,
+                            plan.DeviceLimits(*limits))
 
 
 def _check(parked_pts, thetas, tables, cells: int, noff: int):
@@ -64,8 +68,8 @@ def _check(parked_pts, thetas, tables, cells: int, noff: int):
     if tables.shape != (C, T, T):
         raise ValueError(f"tables must be [C={C}, T={T}, T], got "
                          f"{tuple(tables.shape)}")
-    if noff < 1 or noff * noff > MAX_OFFSETS:
-        raise ValueError(f"noff={noff}: the kernel takes 1 <= noff^2 <= "
+    if not 1 <= noff <= MAX_OFFSETS:
+        raise ValueError(f"noff={noff}: the kernel takes 1 <= noff <= "
                          f"{MAX_OFFSETS}")
 
 
@@ -108,12 +112,6 @@ def fused_coarse_reference(parked_pts, thetas, tables, *, cells: int,
     return out
 
 
-def _rot_per_block(C: int, R: int) -> int:
-    """Rotations per block: enough blocks to fill the card at small C,
-    long runs per staged table at large C."""
-    return max(1, min(32, -(-C * R // 1024)))
-
-
 def fused_coarse(parked_pts, thetas, tables, *, cells: int, noff: int,
                  halfwidth: float, res: float):
     """Fused coarse stage over pairs x rotations.
@@ -139,15 +137,19 @@ def fused_coarse(parked_pts, thetas, tables, *, cells: int, noff: int,
     out = torch.empty((C, R, noff, noff), dtype=torch.float32, device=dev)
     if C == 0 or R == 0 or P == 0:
         return out.zero_()
-    lib = _load()
+    if parked_pts.data_ptr() % 8:
+        raise ValueError("parked_pts must be 8-byte aligned (read as float2)")
+    p = launch_plan(parked_pts, thetas, tables, noff)
+    lanes = _build.int_array(p.lanes)
     with torch.cuda.device(dev):
         cos_t = torch.cos(thetas)
         sin_t = torch.sin(thetas)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nautilus_csm_fused_coarse(
+        rc = _load().nautilus_csm_fused_coarse(
             parked_pts.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-            tables.data_ptr(), out.data_ptr(), C, P, R, T, cells, noff,
-            float(halfwidth), float(res), _rot_per_block(C, R), stream)
+            tables.data_ptr(), out.data_ptr(), lanes, C, P, R, T, p.stride,
+            cells, noff, float(halfwidth), float(res), int(p.table_in_smem),
+            p.warps, p.blocks_per_pair, stream)
     if rc != 0:
         raise RuntimeError(f"csm_coarse kernel launch failed: CUDA error {rc}")
     fused_coarse.launches += 1

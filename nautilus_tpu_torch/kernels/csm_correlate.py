@@ -28,16 +28,14 @@ import ctypes
 
 import torch
 
-from nautilus_tpu_torch.kernels import _build
+from nautilus_tpu_torch.kernels import _build, plan
 
 SOURCE = _build.CSRC / "csm_correlate.cu"
-MAX_OFFSETS = 256          # one thread per offset (kThreads in the source)
+MAX_OFFSETS = plan.MAX_ROWS   # offset rows and columns the kernel takes
 _SIGNATURES = {
     "nautilus_csm_correlate": (
-        ctypes.c_int, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+        ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
         + [ctypes.c_void_p]),
-    "nautilus_csm_correlate_table_in_smem": (ctypes.c_int,
-                                             [ctypes.c_int, ctypes.c_int]),
 }
 
 
@@ -45,12 +43,13 @@ def _load():
     return _build.load(SOURCE, _SIGNATURES)
 
 
-def table_in_shared_memory(H: int, W: int) -> bool:
-    """Whether the kernel stages an [H, W] table in shared memory (CUDA)."""
-    flag = _load().nautilus_csm_correlate_table_in_smem(H, W)
-    if flag < 0:
-        raise RuntimeError("could not read the card's shared-memory limit")
-    return bool(flag)
+def launch_plan(tables, kernels) -> plan.Plan:
+    """The kernel's launch plan for CUDA tables [B, H, W] and kernels
+    [B, R, kh, kw] (kernels/plan.py:correlate_plan)."""
+    B, H, W = tables.shape
+    R, kh, kw = kernels.shape[1:]
+    limits = _build.device_limits(_load(), tables.device.index)
+    return plan.correlate_plan(B, H, W, R, kh, kw, plan.DeviceLimits(*limits))
 
 
 def _check(tables, kernels):
@@ -71,9 +70,9 @@ def _check(tables, kernels):
     kh, kw = kernels.shape[2:]
     if not (1 <= kh <= H and 1 <= kw <= W):
         raise ValueError(f"kernel {kh}x{kw} does not fit the {H}x{W} table")
-    if (H - kh + 1) * (W - kw + 1) > MAX_OFFSETS:
+    if max(H - kh + 1, W - kw + 1) > MAX_OFFSETS:
         raise ValueError(f"{H - kh + 1}x{W - kw + 1} offsets: the kernel takes "
-                         f"at most {MAX_OFFSETS}")
+                         f"at most {MAX_OFFSETS} rows and columns")
 
 
 def correlate_reference(tables, kernels):
@@ -86,12 +85,6 @@ def correlate_reference(tables, kernels):
     patches = patches.reshape(B, oh * ow, kh * kw)
     out = torch.bmm(kernels.reshape(B, R, kh * kw), patches.transpose(1, 2))
     return out.reshape(B, R, oh, ow)
-
-
-def _rot_per_block(B: int, R: int) -> int:
-    """Rotations per block: enough blocks to fill the card at small B,
-    long runs per staged table at large B."""
-    return max(1, min(32, -(-B * R // 1024)))
 
 
 def correlate(tables, kernels):
@@ -121,12 +114,14 @@ def correlate(tables, kernels):
                       device=dev)
     if B == 0 or R == 0:
         return out[0] if single else out
-    lib = _load()
+    p = launch_plan(tables, kernels)
+    lanes = _build.int_array(p.lanes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nautilus_csm_correlate(
-            tables.data_ptr(), kernels.data_ptr(), out.data_ptr(), B, H, W, R,
-            kh, kw, _rot_per_block(B, R), stream)
+        rc = _load().nautilus_csm_correlate(
+            tables.data_ptr(), kernels.data_ptr(), out.data_ptr(), lanes, B,
+            H, W, p.stride, R, kh, kw, int(p.table_in_smem), p.warps,
+            p.blocks_per_pair, stream)
     if rc != 0:
         raise RuntimeError(f"csm_correlate kernel launch failed: CUDA error {rc}")
     correlate.launches += 1

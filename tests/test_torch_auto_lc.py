@@ -44,7 +44,7 @@ def runs():
     solved_j = js.solution.copy()
     jrep = jax_auto_lc(jsolver, apply=True, verbose=False,
                        csm_params=JParams(scan_range=10.0, high_res=0.05))
-    ts, _ = reverse_traversal_problem(3)
+    ts, _ = reverse_traversal_problem(3, device="cpu")
     tsolver = Solver(ts, cfg)
     tsolver.solve_slam()
     solved_t = ts.solution.copy()
@@ -90,7 +90,7 @@ def test_candidate_uncertainty_matches_jax(runs):
 
 
 def test_relative_pose_factor_identity():
-    ts, _ = reverse_traversal_problem(3)
+    ts, _ = reverse_traversal_problem(3, device="cpu")
     ts.solution[4] = ts.solution[2].copy()
     i, j, trans, rot, wt, wr = relative_pose_factor(ts, 4, 2, np.zeros(3),
                                                     1.0, 1.0)

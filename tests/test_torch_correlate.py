@@ -82,7 +82,7 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="does not fit"):
         correlate(table[None], torch.zeros((1, 2, 47, 10)))
     with pytest.raises(ValueError, match="offsets"):
-        correlate(table, torch.zeros((5, 8, 8)))  # 39 x 39 > 256 offsets
+        correlate(table, torch.zeros((5, 8, 8)))  # 39 x 39 offsets > 16 x 16
     with pytest.raises(ValueError, match="meta"):
         correlate(table, kernels.to("meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):

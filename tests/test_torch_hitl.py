@@ -385,7 +385,7 @@ def test_cli_hitl_replay_matches_library_call(tmp_path):
     from nautilus_tpu_torch.ingest.synthetic import make_problem as tmake
 
     conf = load_config(cfg)
-    state, _ = tmake(16, "room", seed=2)
+    state, _ = tmake(16, "room", seed=2, device="cpu")
     solver = Solver(state, conf)
     solver.solve_slam()
     thitl.hitl_callback(solver, thitl.HitlSlamInputMsg.from_points(

@@ -19,7 +19,7 @@ from nautilus_tpu_torch.loop_closure.auto_lc import solve_auto_lc
 from nautilus_tpu_torch.solve.solver import Solver
 import numpy as np
 cfg = load_config({cfg!r})
-state, gt = make_problem(8, "room", num_beams=180, seed=0)
+state, gt = make_problem(8, "room", num_beams=180, seed=0, device="cpu")
 solver = Solver(state, cfg)
 stats = solver.solve_slam()
 report = solve_auto_lc(solver, apply=True, verbose=False)

@@ -31,7 +31,8 @@ def _numpy_fields(problem):
 
 def test_make_problem_identical():
     js, gt_j = jsyn.make_problem(24, "office", num_beams=180, seed=0)
-    ts, gt_t = tsyn.make_problem(24, "office", num_beams=180, seed=0)
+    ts, gt_t = tsyn.make_problem(24, "office", num_beams=180, seed=0,
+                                 device="cpu")
     np.testing.assert_array_equal(gt_j, gt_t)
     jf = _numpy_fields(js.problem)
     for name in SLAMProblem._fields:
