@@ -35,10 +35,19 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the stage engine, counting correlation kernel launches;
 8. HITL: bench.py's scripted colinearity constraint on the closed map
    through the CLI's apply_hitl_line (two solves), with poses selected per
-   line, per-window costs and the HITL residual cost.
+   line, per-window costs and the HITL residual cost;
+9. bag path: bench.py's GDC-scale bag (1000 poses, building world, 720
+   beams, seed 1, lz4 chunks) written, checked native reader against the
+   Python reader, ingested (best of 2, MB/s and msgs/s), then the CLI with
+   --write --vectorize and auto_lc=true (cli.run), with each stage's wall,
+   the ingest cache and a checkpoint round trip of the final session;
+10. CR backend: the 5000-pose building (benchmarks/LARGE_N.md's row)
+   through solve_slam, where method='auto' picks block cyclic reduction,
+   then scan against CR on the final window's system at N=1000 (phase 6)
+   and N=5000: CUDA-event ms, best of 5, and the steps' difference.
 
-Each path (6, 7, 8) starts with every launch count at 0 and reads them when
-it ends.  Exits non-zero on any failure.  The last line is one JSON object
+Each path (6, 7, 8, 9, 10) starts with every launch count at 0 and reads
+them when it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
 their path; times, bound and library call at the main path's shapes; the
@@ -79,6 +88,11 @@ F32_ADDS_PER_S = F32_FLOPS_PER_S / 2
 # Shared memory moves 128 bytes per clock on each of 132 SMs; 1.98 GHz is
 # the card's highest SM clock.
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
+
+
+# Scan against CR: the steps' largest difference relative to the scan's
+# largest entry, as tests/test_torch_band_cr.py holds the two backends.
+CR_STEP_REL = 2e-3
 
 
 def fail(msg):
@@ -489,6 +503,297 @@ def bench_csm_leg(state, engines):
     return rates
 
 
+def final_window_system(solver):
+    """The damped system LM solves first at the max window, at the current
+    solution: (BandedSystem, fixed mask, radius)."""
+    import torch
+    from nautilus_tpu_torch.solve.factors import assemble_banded_system
+    x = solver._current_x()
+    graph = solver.build_graph(
+        x, solver.config.get_int("lidar_constraint_amount_max"))
+    sys_, _ = assemble_banded_system(x, graph, solver._layout, "moments",
+                                     solver._long_range_factors())
+    radius = torch.tensor(solver.lm_params.initial_radius, device=x.device)
+    return sys_, solver._fixed_mask(), radius
+
+
+def scan_vs_cr(label, solver, system):
+    """One solve_damped_banded per backend on ``system``: CUDA-event ms,
+    best of 5, and the steps' largest difference relative to the scan's
+    largest entry."""
+    import torch
+    from nautilus_tpu_torch.solve import band
+    sys_, fixed, radius = system
+    steps, ms = {}, {}
+    for method in ("scan", "cr"):
+        def call():
+            return band.solve_damped_banded(sys_, fixed, radius,
+                                            solver.lm_params, method=method)
+        step, _, ok = call()
+        if not bool(ok):
+            fail(f"{label}: the {method} backend's Cholesky failed")
+        steps[method] = step
+        best = float("inf")
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end))
+        ms[method] = best
+    rel = float((steps["cr"] - steps["scan"]).abs().max()
+                / steps["scan"].abs().max())
+    s, _ = band.resolve_band_plan(sys_.n, sys_.w, method="cr")
+    print(f"  {label}: N={sys_.n} w={sys_.w} lines={sys_.num_lines} "
+          f"Woodbury columns={sys_.rank_lr}: scan {ms['scan']!r} ms "
+          f"(superblock {band.resolve_band_plan(sys_.n, sys_.w, method='scan')[0]}), "
+          f"CR {ms['cr']!r} ms (superblock {s}), CUDA events best of 5; "
+          f"max |step cr - step scan| / max |step scan| = {rel!r} "
+          f"(tolerance {CR_STEP_REL} of max |step scan|)", flush=True)
+    if not rel <= CR_STEP_REL:
+        fail(f"{label}: scan and CR steps differ by {rel} relative")
+    return {"n": sys_.n, "scan_ms": ms["scan"], "cr_ms": ms["cr"],
+            "rel_diff": rel}
+
+
+def same_messages(a, b):
+    """The native and the Python reader's streams carry the same messages
+    in the same order (stamps to 1e-6 s: the native reader rebuilds them
+    from secs and nsecs in double)."""
+    import numpy as np
+    if len(a) != len(b) or not a:
+        return False
+    for ma, mb in zip(a, b):
+        m, n = ma.msg, mb.msg
+        if (ma.topic != mb.topic or type(m) is not type(n)
+                or abs(ma.time - mb.time) > 1e-6):
+            return False
+        if hasattr(m, "ranges"):
+            if not (np.array_equal(m.ranges, n.ranges)
+                    and (m.angle_min, m.angle_max, m.angle_increment,
+                         m.range_min, m.range_max)
+                    == (n.angle_min, n.angle_max, n.angle_increment,
+                        n.range_min, n.range_max)):
+                return False
+        elif hasattr(m, "position"):
+            if not (np.array_equal(m.position, n.position)
+                    and np.array_equal(m.orientation, n.orientation)):
+                return False
+        elif (m.dr, m.dx, m.dy) != (n.dr, n.dx, n.dy):
+            return False
+    return True
+
+
+def bag_path_phase(tmp, zero_counts, read_counts, n_bag=1000):
+    """Phase 9: bench.py's GDC-scale lz4 bag through the native reader, the
+    builder and the ingest cache, then the CLI (cli.run) with --write
+    --vectorize and auto_lc=true, then a checkpoint round trip."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch import cli
+    from nautilus_tpu_torch.core.luaconf import load_config
+    from nautilus_tpu_torch.ingest import cache, native
+    from nautilus_tpu_torch.ingest import rosbag as rb
+    from nautilus_tpu_torch.ingest.builder import process_bag_file
+    from nautilus_tpu_torch.ingest.synthetic import write_synthetic_bag
+    from nautilus_tpu_torch.io.checkpoint import load_state, save_state
+    from nautilus_tpu_torch.io.poses import read_pose_file
+
+    bag = tmp / "gdc_scale.bag"
+    t0 = time.perf_counter()
+    write_synthetic_bag(bag, num_nodes=n_bag, world_kind="building",
+                        num_beams=720, seed=1, substeps=2,
+                        odom_noise_trans=0.02, odom_noise_rot=0.008)
+    msgs = [(m.topic, m.time, m.msg) for m in rb.read_bag(bag)]
+    rb.write_bag(bag, msgs, compression="lz4")
+    mb = os.path.getsize(bag) / 1e6
+    print(f"  bag: {mb!r} MB, {len(msgs)} messages, lz4 chunks (written in "
+          f"{time.perf_counter() - t0!r} s)")
+
+    # The reader: native unless the system libbz2 is absent; a failed build
+    # or load raises (and fails the phase) while g++ and libbz2 are there.
+    has_gxx = shutil.which("g++") is not None
+    has_bz2 = native.library_path() is not None
+    print(f"  g++ {'present' if has_gxx else 'absent'}, libbz2 "
+          f"{'present' if has_bz2 else 'absent'}", flush=True)
+    try:
+        reader = native.reader_name()
+    except Exception as exc:    # noqa: BLE001  (reported as the failure)
+        fail(f"the native bag reader did not build or load: {exc}")
+    if has_gxx and has_bz2 and reader != "native":
+        fail("g++ and libbz2 are present but the native reader did not run")
+    if reader == "native":
+        t0 = time.perf_counter()
+        from_native = native.read_bag_native(bag, "/scan", "/odom")
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from_python = list(rb.read_bag(bag, topics=["/scan", "/odom"]))
+        t_python = time.perf_counter() - t0
+        print(f"  native reader ({native.library_path()}): {len(from_native)} "
+              f"messages in {t_native!r} s; Python reader {len(from_python)} "
+              f"in {t_python!r} s")
+        if not same_messages(from_native, from_python):
+            fail("the native reader's messages differ from the Python "
+                 "reader's on the GDC-scale bag")
+    print(f"  reader: {reader}", flush=True)
+
+    shutil.copy(ROOT / "config" / "default_config.lua", tmp)
+    cfg_path = tmp / "gdc_bag.lua"
+    cfg_path.write_text(
+        f'dofile("default_config.lua")\nbag_path="{bag}"\n'
+        f'lidar_topic="/scan"\nodom_topic="/odom"\npose_number={n_bag}\n'
+        f'auto_lc=true\npose_output_file="{tmp / "poses.txt"}"\n'
+        f'map_output_file="{tmp / "map.csv"}"\n')
+    cfg = load_config(cfg_path)
+    # bench.py's ingest leg: best of 2, the first paying the reader's build
+    # and a cold page cache.
+    dt = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        raw = process_bag_file(bag, cfg, verbose=False)
+        dt = min(dt, time.perf_counter() - t0)
+    nodes = int(raw.points.shape[0])
+    print(f"  ingest (reader + builder) best of 2: {dt!r} s, {mb / dt!r} "
+          f"MB/s, {len(msgs) / dt!r} msgs/s, {nodes} nodes", flush=True)
+    # tests/test_e2e_bag.py's range: the motion gate drops ~30 % at most.
+    if not 0.7 * n_bag <= nodes <= n_bag:
+        fail(f"{nodes} nodes ingested, outside {0.7 * n_bag}-{n_bag}")
+
+    # The ingest cache lives in this run's temp dir: the CLI's ingest is a
+    # miss, and nothing is left behind.
+    cache.cache_dir = lambda: tmp
+    zero_counts()
+    rc, solver, walls = cli.run(["--config_file", str(cfg_path), "--write",
+                                 "--vectorize", "--quiet"])
+    counts = read_counts()
+    if rc != 0:
+        fail(f"the CLI returned {rc} on the bag")
+    state = solver.state
+    print("  CLI walls s: " + ", ".join(f"{k} {v!r}" for k, v in walls.items()))
+    print(f"  CLI: {state.num_nodes} poses, {len(state.lc_factors)} loop "
+          f"closures applied; kernel launches {counts}", flush=True)
+    poses = read_pose_file(tmp / "poses.txt")
+    map_rows = (tmp / "map.csv").read_text().split()
+    try:
+        segs = np.array([r.split(",") for r in map_rows], float)
+    except ValueError:
+        fail("a map CSV row is not 4 numbers")
+    print(f"  map: {len(map_rows)} segments")
+    if state.num_nodes != nodes or not np.all(np.isfinite(state.solution)):
+        fail("non-finite or miscounted poses on the bag path")
+    if len(poses) != nodes or not np.all(
+            np.isfinite(np.stack(list(poses.values())))):
+        fail(f"the pose file has {len(poses)} rows for {nodes} nodes, or a "
+             "non-finite pose")
+    if not map_rows or segs.ndim != 2 or segs.shape[1] != 4 \
+            or not np.all(np.isfinite(segs)):
+        fail("the map CSV is empty or a row is not 4 finite floats")
+    if counts["fused_coarse"] == 0:
+        fail("the bag path never launched the fused coarse kernel")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        again = cache.load_or_ingest(bag, cfg, verbose=True)
+    t_hit = time.perf_counter() - t0
+    print(f"  second load_or_ingest: {out.getvalue().strip()!r} in "
+          f"{t_hit!r} s")
+    if "ingest cache hit" not in out.getvalue() or not all(
+            np.array_equal(getattr(again, k), getattr(raw, k))
+            for k in raw._fields):
+        fail("the second load_or_ingest missed the cache or changed the "
+             "nodes")
+
+    # Checkpoint round trip into a blank session of the same problem.
+    ckpt = tmp / "session.npz"
+    save_state(state, ckpt)
+    blank = dataclasses.replace(
+        state, solution=np.zeros_like(state.solution), lc_factors=[],
+        hitl_constraints=[], line_poses=np.zeros((0, 3)))
+    back = load_state(blank, ckpt)
+    same_lc = len(back.lc_factors) == len(state.lc_factors) and all(
+        a[:2] == b[:2] and np.array_equal(a[2], b[2]) and a[3:] == b[3:]
+        for a, b in zip(back.lc_factors, state.lc_factors))
+    print(f"  checkpoint: {os.path.getsize(ckpt)} bytes, "
+          f"{len(back.lc_factors)} LC factors back", flush=True)
+    if not (np.array_equal(back.solution, state.solution) and same_lc
+            and np.array_equal(back.line_poses, state.line_poses)):
+        fail("a save_state/load_state round trip changed the session")
+    torch.cuda.synchronize()
+    return {"mb": mb, "ingest_s": dt, "nodes": nodes, "reader": reader,
+            "walls": walls, "launches": counts, "segments": len(map_rows)}
+
+
+def cr_phase(cfg, dev, zero_counts, read_counts, n=5000):
+    """Phase 10: the 5000-pose building through solve_slam, where
+    method='auto' picks block cyclic reduction; returns the solver."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.ingest.synthetic import make_problem
+    from nautilus_tpu_torch.solve import band
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.utils.metrics import ate
+
+    w = cfg.get_int("lidar_constraint_amount_max")
+    print(f"  resolve_band_plan({n}, {w}) = {band.resolve_band_plan(n, w)}; "
+          f"CR_MIN_NODES {band.CR_MIN_NODES}", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    state, gt = make_problem(n, "building", num_beams=720, seed=1,
+                             odom_noise_trans=0.02, odom_noise_rot=0.008,
+                             device=dev)
+    torch.cuda.synchronize()
+    print(f"  preprocess (synthesize + normals + features) wall "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    x0 = state.solution.copy()
+    # Count the factorizations each backend runs during the solve.
+    used = {"cr": 0, "scan": 0}
+    real_cr, real_scan = band.cr_factor_tridiag, band._tridiag_cholesky
+
+    def cr_counted(*a):
+        used["cr"] += 1
+        return real_cr(*a)
+
+    def scan_counted(*a):
+        used["scan"] += 1
+        return real_scan(*a)
+
+    band.cr_factor_tridiag, band._tridiag_cholesky = cr_counted, scan_counted
+    solver = Solver(state, cfg)
+    try:
+        t0 = time.perf_counter()
+        stats = solver.solve_slam()
+        t_solve = time.perf_counter() - t0
+    finally:
+        band.cr_factor_tridiag, band._tridiag_cholesky = real_cr, real_scan
+    sol = state.solution
+    print(f"  solve_slam wall {t_solve!r} s; band factorizations {used}; per "
+          "window (window, iterations, initial cost, final cost, wall s):")
+    for st in stats.windows:
+        print(f"    {st.window} {st.iterations} {st.initial_cost!r} "
+              f"{st.final_cost!r} {st.wall_s!r}")
+    print(f"  ATE m: odometry {ate(x0, gt)['trans_rmse']!r} solved "
+          f"{ate(sol, gt)['trans_rmse']!r}; kernel launches {read_counts()}",
+          flush=True)
+    if sol.shape != (n, 3) or not np.all(np.isfinite(sol)):
+        fail("non-finite or mis-shaped poses after the 5000-pose solve")
+    for st in stats.windows:
+        if st.final_cost > st.initial_cost:
+            fail(f"window {st.window}: final cost {st.final_cost} exceeds "
+                 f"the initial {st.initial_cost}")
+    if used["cr"] == 0 or used["scan"] != 0:
+        fail(f"the 5000-pose solve did not run on cyclic reduction alone "
+             f"({used})")
+    return solver
+
+
 def main():
     if not (ROOT / "nautilus_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -502,7 +807,7 @@ def main():
 
     # -- 1. environment ------------------------------------------------------
     t_all = time.perf_counter()
-    print("[1/8] environment", flush=True)
+    print("[1/10] environment", flush=True)
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
     from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
@@ -525,7 +830,7 @@ def main():
         return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    print("[2/8] build: one nvcc per kernel source, started together",
+    print("[2/10] build: one nvcc per kernel source, started together",
           flush=True)
     sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
     t0 = time.perf_counter()
@@ -540,7 +845,7 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    print(f"[3/8] fused coarse kernel against plain (bench shapes at C=8 and "
+    print(f"[3/10] fused coarse kernel against plain (bench shapes at C=8 and "
           f"at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
           f"gdc_2020 range)", flush=True)
     cases = [kernel_case(dev, scan_range=30.0),
@@ -549,7 +854,7 @@ def main():
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    print(f"[4/8] correlation kernel against plain (the pair engine's batch "
+    print(f"[4/10] correlation kernel against plain (the pair engine's batch "
           f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
           f"table in global memory)", flush=True)
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
@@ -560,7 +865,7 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    print("[5/8] small-input reference: card vs CPU", flush=True)
+    print("[5/10] small-input reference: card vs CPU", flush=True)
     small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -570,7 +875,7 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    print("[6/8] main path: make_problem(1000, building, 720 beams, seed 1) "
+    print("[6/10] main path: make_problem(1000, building, 720 beams, seed 1) "
           "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses",
           flush=True)
     from nautilus_tpu_torch.core.luaconf import load_config
@@ -639,9 +944,11 @@ def main():
         fail("auto-LC applied no closure")
     if not ate_closed < ate_odom:
         fail(f"closed ATE {ate_closed} is not below odometry ATE {ate_odom}")
+    # Phase 10 times both band backends on this closed map's system.
+    system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    print("[7/8] pair engine: bench.py's CSM leg, then the main path's gated "
+    print("[7/10] pair engine: bench.py's CSM leg, then the main path's gated "
           "pairs through engine='pair' against engine='stage'", flush=True)
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
@@ -687,7 +994,7 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    print(f"[8/8] HITL: bench.py's scripted constraint (lines "
+    print(f"[8/10] HITL: bench.py's scripted constraint (lines "
           f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map",
           flush=True)
     from nautilus_tpu_torch.cli import apply_hitl_line
@@ -740,6 +1047,22 @@ def main():
     if not hitl_costs[0] < cost_start:
         fail(f"the HITL residual cost did not drop in the first solve "
              f"({cost_start} -> {hitl_costs[0]})")
+
+    # -- 9. bag path ------------------------------------------------------------
+    print("[9/10] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+          "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
+          "--write --vectorize and auto_lc=true", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        bag_path_phase(Path(tmp), zero_counts, read_counts)
+
+    # -- 10. CR backend -----------------------------------------------------------
+    print("[10/10] CR backend: make_problem(5000, building, 720 beams, seed 1) "
+          "-> solve_slam, then scan against CR at N=1000 and N=5000",
+          flush=True)
+    solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
+    scan_vs_cr("closed map of phase 6", solver, system_1000)
+    scan_vs_cr("5000-pose solve", solver_5000,
+               final_window_system(solver_5000))
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")

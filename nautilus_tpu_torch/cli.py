@@ -1,19 +1,24 @@
 """Command-line entry point of the PyTorch port (port of
-nautilus_tpu/cli.py, the synthetic-world path).
+nautilus_tpu/cli.py).
 
-Flow: flags -> Lua config -> synthetic world -> preprocess on the device ->
-SLAMState -> optional solution reload -> growing-window solve -> auto loop
-closure when the config sets ``auto_lc=true`` -> HITL curation -> pose file.
+Flow: flags -> Lua config -> bag replay through the ingest cache (or a
+synthetic world) -> preprocess on the device -> SLAMState -> optional
+solution reload -> growing-window solve -> auto loop closure when the
+config sets ``auto_lc=true`` -> HITL curation -> pose file and line map.
 
+    python -m nautilus_tpu_torch.cli --config_file <cfg with bag_path> \
+        --write --vectorize [--device cpu]
     python -m nautilus_tpu_torch.cli --config_file config/default_config.lua \
-        --synthetic building --write [--device cuda]
+        --synthetic building --write
 
 Curation commands:
 - ``--hitl_replay FILE``: a text file of line pairs, one
   ``ax ay ax2 ay2 bx by bx2 by2`` per line (``#`` starts a comment),
   applied in order after the solve;
-- ``--interactive``: a stdin loop of ``hitl <8 floats>``, ``write`` and
-  ``quit``.
+- ``--write`` / ``--vectorize``: write the pose file / the line map CSV
+  once the solve and curation are done;
+- ``--interactive``: a stdin loop of ``hitl <8 floats>``, ``write``,
+  ``vectorize`` and ``quit``.
 """
 
 from __future__ import annotations
@@ -24,30 +29,48 @@ import time
 from pathlib import Path
 
 # Flags of the JAX CLI that the port does not have yet (ROADMAP.md).
-_NOT_PORTED = {"--vectorize": "vectorize and checkpoint", "--ros": "viz",
-               "--devices": "sharded"}
+_NOT_PORTED = {"--ros": "viz", "--devices": "sharded"}
 
 
-def build_state(cfg, args, device, verbose=True):
+def build_state(cfg, args, device, verbose=True, walls=None):
+    """Ingest (the configured bag, or a synthetic world) and preprocess on
+    ``device``; records the "ingest" and "preprocess" walls in ``walls``."""
     from nautilus_tpu_torch.core.preprocess import preprocess
     from nautilus_tpu_torch.core.problem import (SLAMState, build_problem,
                                                  resolve_solver_dtype)
-    from nautilus_tpu_torch.ingest.synthetic import synthesize
 
+    walls = {} if walls is None else walls
     dtype = resolve_solver_dtype(cfg.get("solver_dtype", "float32"))
-    raw, _ = synthesize(num_nodes=cfg.get_int("pose_number"),
-                        world_kind=args.synthetic, seed=args.synthetic_seed)
-    if verbose:
-        print(f"Synthesized {raw.points.shape[0]} nodes "
-              f"({args.synthetic} world).")
+    t0 = time.perf_counter()
+    if args.synthetic:
+        from nautilus_tpu_torch.ingest.synthetic import synthesize
+        raw, _ = synthesize(num_nodes=cfg.get_int("pose_number"),
+                            world_kind=args.synthetic,
+                            seed=args.synthetic_seed)
+        if verbose:
+            print(f"Synthesized {raw.points.shape[0]} nodes "
+                  f"({args.synthetic} world).")
+    else:
+        from nautilus_tpu_torch.ingest.cache import load_or_ingest
+        bag = Path(cfg.bag_path)
+        if not bag.is_absolute():
+            bag = Path.cwd() / bag
+        if verbose:
+            print(f"Loading bag file [{bag}] ...")
+        raw = load_or_ingest(bag, cfg, verbose=verbose)
+        if verbose:
+            print(f"Captured {raw.points.shape[0]} nodes.")
+    walls["ingest"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     normals, pi, pm, ei, em, _ = preprocess(raw.points, raw.points_mask,
                                             device, config=cfg)
     problem = build_problem(raw, normals, pi, pm, ei, em, device, dtype)
+    state = SLAMState.from_problem(problem, raw.timestamps)
+    walls["preprocess"] = time.perf_counter() - t0
     if verbose:
         print(f"Preprocessed (normals + features) in "
-              f"{time.perf_counter() - t0:.2f}s.")
-    return SLAMState.from_problem(problem, raw.timestamps)
+              f"{walls['preprocess']:.2f}s.")
+    return state
 
 
 def apply_hitl_line(solver, tokens, verbose=True):
@@ -63,9 +86,10 @@ def apply_hitl_line(solver, tokens, verbose=True):
 
 def _interactive(solver, cfg, verbose):
     from nautilus_tpu_torch.io.poses import write_poses
+    from nautilus_tpu_torch.io.vectorize import vectorize
     if verbose:
         print("Waiting for Loop Closure input. Commands: "
-              "hitl <8 floats> | write | quit")
+              "hitl <8 floats> | write | vectorize | quit")
     for raw_line in sys.stdin:
         tokens = raw_line.split()
         if not tokens:
@@ -80,9 +104,7 @@ def _interactive(solver, cfg, verbose):
                 write_poses(solver.state, cfg.pose_output_file)
                 print(f"Wrote poses to {cfg.pose_output_file}")
             elif cmd == "vectorize":
-                raise NotImplementedError(
-                    "vectorize is not yet ported (ROADMAP.md section 1, "
-                    "'vectorize and checkpoint')")
+                vectorize(solver.state, cfg.map_output_file, verbose=verbose)
             else:
                 print(f"Unknown command: {cmd}")
         except (ValueError, NotImplementedError, OSError) as e:
@@ -91,6 +113,12 @@ def _interactive(solver, cfg, verbose):
 
 
 def main(argv=None) -> int:
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """The CLI's work: (exit code, Solver or None, walls in seconds by stage:
+    ingest, preprocess, solve, auto_lc, hitl, write, vectorize)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     for flag, item in _NOT_PORTED.items():
         if any(a == flag or a.startswith(flag + "=") for a in argv):
@@ -108,8 +136,10 @@ def main(argv=None) -> int:
                     help="file of HITL line pairs to apply after the solve")
     ap.add_argument("--write", action="store_true",
                     help="write pose_output_file after solving")
+    ap.add_argument("--vectorize", action="store_true",
+                    help="write map_output_file after solving")
     ap.add_argument("--interactive", action="store_true",
-                    help="stdin command loop (hitl/write/quit)")
+                    help="stdin command loop (hitl/write/vectorize/quit)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "card, so the CPU runs only with --device cpu)")
@@ -120,17 +150,18 @@ def main(argv=None) -> int:
     from nautilus_tpu_torch.core.luaconf import load_config, validate_config
     from nautilus_tpu_torch.core.problem import default_device
     from nautilus_tpu_torch.io.poses import load_solution, write_poses
+    from nautilus_tpu_torch.io.vectorize import vectorize
     from nautilus_tpu_torch.solve.solver import Solver
 
     cfg = load_config(args.config_file)
     validate_config(cfg, require_bag=not args.synthetic)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "bag ingest is not yet ported (ROADMAP.md section 1, 'bag "
-            "ingest'); pass --synthetic")
+    walls = {}
+    if not args.synthetic and not cfg.bag_path:
+        print("Must specify an input bag!")
+        return 1, None, walls
     device = default_device(args.device)
 
-    state = build_state(cfg, args, device, verbose=verbose)
+    state = build_state(cfg, args, device, verbose=verbose, walls=walls)
     if args.solution_poses:
         if verbose:
             print("Loading solution poses.")
@@ -140,28 +171,38 @@ def main(argv=None) -> int:
                     linear_solver=cfg.get("linear_solver", "auto"))
     t0 = time.perf_counter()
     stats = solver.solve_slam()
+    walls["solve"] = time.perf_counter() - t0
     if verbose:
-        print(f"Solved {state.num_nodes} poses in "
-              f"{time.perf_counter() - t0:.2f}s; final cost "
-              f"{stats.final_cost:.4f}.")
+        print(f"Solved {state.num_nodes} poses in {walls['solve']:.2f}s; "
+              f"final cost {stats.final_cost:.4f}.")
 
     if cfg.get("auto_lc", False):
         from nautilus_tpu_torch.loop_closure.auto_lc import solve_auto_lc
+        t0 = time.perf_counter()
         solve_auto_lc(solver, apply=True, verbose=verbose)
+        walls["auto_lc"] = time.perf_counter() - t0
 
     if args.hitl_replay:
+        t0 = time.perf_counter()
         for line in Path(args.hitl_replay).read_text().splitlines():
             line = line.strip()
             if line and not line.startswith("#"):
                 apply_hitl_line(solver, line.split(), verbose=verbose)
+        walls["hitl"] = time.perf_counter() - t0
 
     if args.write:
+        t0 = time.perf_counter()
         write_poses(state, cfg.pose_output_file)
+        walls["write"] = time.perf_counter() - t0
         if verbose:
             print(f"Wrote poses to {cfg.pose_output_file}")
+    if args.vectorize:
+        t0 = time.perf_counter()
+        vectorize(state, cfg.map_output_file, verbose=verbose)
+        walls["vectorize"] = time.perf_counter() - t0
     if args.interactive:
         _interactive(solver, cfg, verbose)
-    return 0
+    return 0, solver, walls
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ Host numpy, identical to the JAX package's generator for the same seed:
 a segment world, a ground-truth trajectory, scans raycast from it, and
 odometry factors = ground-truth world-frame deltas + Gaussian drift, with
 initial poses integrated from the noisy odometry.  ``make_problem`` and
-``reverse_traversal_problem`` then preprocess on the requested device.
+``reverse_traversal_problem`` then preprocess on the requested device;
+``write_synthetic_bag`` writes the same kind of run as a ROS bag.
 """
 
 from __future__ import annotations
@@ -158,6 +159,67 @@ def synthesize(num_nodes: int = 30, world_kind: str = "office",
         odom_j=np.arange(1, num_nodes, dtype=np.int64),
         odom_trans=d_trans, odom_rot=d_rot)
     return raw, gt
+
+
+def write_synthetic_bag(path, num_nodes: int = 30, world_kind: str = "office",
+                        num_beams: int = 720, max_range: float = 30.0,
+                        differential: bool = False, seed: int = 0,
+                        lidar_topic: str = "/scan", odom_topic: str = "/odom",
+                        step: float = 0.25, substeps: int = 5,
+                        odom_noise_trans: float = 0.002,
+                        odom_noise_rot: float = 0.001) -> None:
+    """Write a ROS bag of LaserScan + Odometry along a trajectory, byte for
+    byte the JAX package's for the same arguments.
+
+    The builder's motion-threshold gating (translation_change_for_lidar =
+    step) then reproduces ~num_nodes captures.  Odometry increments carry
+    drift noise; scans are raycast from ground truth.
+    """
+    from nautilus_tpu_torch.ingest.rosbag import (CobotOdometryMsg, HeaderMsg,
+                                                  LaserScanMsg, OdometryMsg,
+                                                  write_bag)
+    rng = np.random.default_rng(seed)
+    world = make_world(world_kind)
+    # Fine-grained truth: substeps per capture step.
+    fine = make_trajectory(num_nodes * substeps, world_kind,
+                           step=step / substeps)
+    messages = []
+    odom_pose = fine[0].copy()
+    t = 1_000_000_000.0
+    for k in range(len(fine)):
+        t += 0.05
+        if k > 0:
+            d = fine[k] - fine[k - 1]
+            d[:2] += rng.normal(scale=odom_noise_trans, size=2)
+            d[2] += rng.normal(scale=odom_noise_rot)
+            odom_pose = odom_pose + d
+            if differential:
+                # Robot-frame increments.
+                c, s = np.cos(odom_pose[2]), np.sin(odom_pose[2])
+                dx = c * d[0] + s * d[1]
+                dy = -s * d[0] + c * d[1]
+                messages.append((odom_topic, t, CobotOdometryMsg(
+                    HeaderMsg(k, t, "odom"), dr=float(d[2]), dx=float(dx),
+                    dy=float(dy))))
+        if not differential:
+            half = odom_pose[2] / 2.0
+            messages.append((odom_topic, t, OdometryMsg(
+                HeaderMsg(k, t, "odom"), "base",
+                position=np.array([odom_pose[0], odom_pose[1], 0.0]),
+                orientation=np.array([0.0, 0.0, np.sin(half), np.cos(half)]),
+                twist_linear=np.zeros(3), twist_angular=np.zeros(3))))
+        # A scan per substep; the builder's gating decides which become nodes.
+        ranges = raycast(world, fine[k], num_beams=num_beams,
+                         max_range=max_range)
+        ranges = np.where(np.isfinite(ranges), ranges, max_range + 1.0)
+        messages.append((lidar_topic, t + 0.01, LaserScanMsg(
+            HeaderMsg(k, t + 0.01, "laser"),
+            angle_min=-np.pi, angle_max=np.pi,
+            angle_increment=2 * np.pi / num_beams,
+            time_increment=0.0, scan_time=0.05, range_min=0.02,
+            range_max=max_range, ranges=ranges.astype(np.float32),
+            intensities=np.zeros(0, np.float32))))
+    write_bag(path, messages)
 
 
 def _state_from_raw(raw: RawNodes, device):

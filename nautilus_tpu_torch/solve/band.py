@@ -1,14 +1,19 @@
 """Block-band Cholesky solver for the SLAM normal equations (port of
-nautilus_tpu/solve/band.py, scan backend).
+nautilus_tpu/solve/band.py).
 
 Lidar/odometry factors couple nodes within the window (|i - j| <= w), so H
 is block-banded with 3x3 blocks.  Grouping s >= w block rows into
 superblocks of S = 3s dofs makes it block tridiagonal (diagonal A_k,
-sub-diagonal B_k), factored by a sequential scan:
+sub-diagonal B_k).  Two backends factor it:
 
-  L_0 L_0^T = A_0;   C_k = B_k L_{k-1}^{-T};   L_k L_k^T = A_k - C_k C_k^T
+- the sequential scan,
+  L_0 L_0^T = A_0;   C_k = B_k L_{k-1}^{-T};   L_k L_k^T = A_k - C_k C_k^T,
+  followed by forward/backward substitution: K dependent steps;
+- block cyclic reduction, which eliminates the odd superblocks level by
+  level: ceil(log2 K) batched stages at ~2x the FLOPs.
 
-followed by forward/backward substitution.  Long-range loop closures
+``resolve_band_plan`` picks one from the node count, as the JAX package
+does.  Long-range loop closures
 (H_lr = U U^T) fold in by the Woodbury identity.  HITL line poses couple a
 few extra dofs to arbitrary nodes; they form a dense border (C, E, gl)
 that the Schur complement on the small line block eliminates.
@@ -155,36 +160,145 @@ def _tridiag_solve(Ls, Cs, r):
     return xs
 
 
-def resolve_band_plan(w: int) -> int:
-    """Superblock size of the sequential scan backend.
+class CRLevel(NamedTuple):
+    """One cyclic-reduction level.  Block row i holds
+    B_i x_{i-1} + A_i x_i + B_{i+1}^T x_{i+1} = r_i (B_0 = B_K = 0); 'odd'
+    means rows 1, 3, ... of this level, Ko = K/2 of them."""
 
-    The JAX package switches to block cyclic reduction at n >= 2000
-    (CR_MIN_NODES); that backend is not ported yet (ROADMAP.md section 1,
-    'CR backend'), so the port runs the scan at every n.  The scan is exact
-    at any n: cyclic reduction only changes its speed on long chains.
+    cho_odd: torch.Tensor   # [Ko, S, S] Cholesky of A_{2i+1}
+    B_ev: torch.Tensor      # [Ko, S, S] B_{2i}   (even row's left coupling)
+    B_od: torch.Tensor      # [Ko, S, S] B_{2i+1} (odd row's left coupling)
+    AiB_od: torch.Tensor    # [Ko, S, S] A_{2i+1}^{-1} B_{2i+1}
+    AiBevT: torch.Tensor    # [Ko, S, S] A_{2i+1}^{-1} B_{2i+2}^T
+
+
+class CRFactorization(NamedTuple):
+    levels: tuple           # of CRLevel, finest first
+    cho_root: torch.Tensor  # [1, S, S]
+    K: int                  # superblock count padded to a power of two
+    s: int                  # nodes per superblock (S = 3s)
+    ok: torch.Tensor        # 0-dim bool: every Cholesky succeeded
+
+
+def cr_factor_tridiag(A, B) -> CRFactorization:
+    """Factor the superblock tridiagonal by block cyclic reduction.
+
+    A [K0, S, S] diagonals, B [K0, S, S] sub-diagonals (B_0 = 0).  K0 is
+    padded to a power of two with identity diagonals (decoupled rows).
+    Each level eliminates the odd rows, leaving the half-size tridiagonal
+    over the even rows:
+
+      A'_i = A_{2i} - B_{2i} A_{2i-1}^{-1} B_{2i}^T
+                    - B_{2i+1}^T A_{2i+1}^{-1} B_{2i+1}
+      B'_i = -B_{2i} A_{2i-1}^{-1} B_{2i-1}
+
+    Every level's Cholesky factors and solves run as one batched call over
+    its [Ko, S, S] blocks.  ok ORs the Cholesky failures of every level and
+    of the root, as the scan does over its K steps.
     """
-    return max(16, w)
+    K0, S = A.shape[0], A.shape[1]
+    K = 1 << (K0 - 1).bit_length()
+    if K != K0:
+        eye = torch.eye(S, dtype=A.dtype, device=A.device)
+        A = torch.cat([A, eye.expand(K - K0, S, S)])
+        B = torch.cat([B, B.new_zeros((K - K0, S, S))])
+    fails = torch.zeros((), dtype=torch.int32, device=A.device)
+    levels = []
+    while A.shape[0] > 1:
+        zS = A.new_zeros((1, S, S))
+        cho_odd, info = torch.linalg.cholesky_ex(A[1::2])
+        fails = fails + (info != 0).sum(dtype=torch.int32)
+        B_ev, B_od = B[0::2], B[1::2]                      # B_{2i}, B_{2i+1}
+        B_next = torch.cat([B[2::2], zS])                  # B_{2i+2}
+        AiB_od = torch.cholesky_solve(B_od, cho_odd)
+        AiBevT = torch.cholesky_solve(B_next.mT, cho_odd)
+        levels.append(CRLevel(cho_odd, B_ev, B_od, AiB_od, AiBevT))
+        # Row 2i's couplings through odd rows 2i+1 (right) and 2i-1 (left):
+        # A_{2i-1}^{-1} B_{2i}^T and A_{2i-1}^{-1} B_{2i-1} are the previous
+        # odd row's AiBevT and AiB_od.
+        corr_r = B_od.mT @ AiB_od
+        corr_l = B_ev @ torch.cat([zS, AiBevT[:-1]])
+        B = -(B_ev @ torch.cat([zS, AiB_od[:-1]]))
+        A = A[0::2] - corr_l - corr_r
+    cho_root, info = torch.linalg.cholesky_ex(A)
+    fails = fails + (info != 0).sum(dtype=torch.int32)
+    return CRFactorization(tuple(levels), cho_root, K, S // 3, fails == 0)
 
 
-def band_factor(sys: BandedSystem, s: int) -> BandFactorization:
+def cr_solve_tridiag(fac: CRFactorization, r):
+    """Solve with a cr_factor_tridiag factorization; r [K0, S, m]."""
+    K0, S, m = r.shape
+    if fac.K != K0:
+        r = torch.cat([r, r.new_zeros((fac.K - K0, S, m))])
+    # Forward: reduce the right-hand side level by level,
+    # r'_i = r_{2i} - B_{2i} A_{2i-1}^{-1} r_{2i-1}
+    #               - B_{2i+1}^T A_{2i+1}^{-1} r_{2i+1}.
+    stack = []
+    for lvl in fac.levels:
+        z = torch.cholesky_solve(r[1::2], lvl.cho_odd)      # A_odd^-1 r_odd
+        stack.append(z)
+        z_prev = torch.cat([r.new_zeros((1, S, m)), z[:-1]])
+        r = r[0::2] - lvl.B_ev @ z_prev - lvl.B_od.mT @ z
+    x = torch.cholesky_solve(r, fac.cho_root)                # [1, S, m]
+    # Backward: x_{2i+1} = z_i - A^-1 B_{2i+1} x_{2i} - A^-1 B_{2i+2}^T x_{2i+2}.
+    for lvl, z in zip(reversed(fac.levels), reversed(stack)):
+        x_right = torch.cat([x[1:], x.new_zeros((1, S, m))])
+        x_odd = z - lvl.AiB_od @ x - lvl.AiBevT @ x_right
+        x = torch.stack([x, x_odd], dim=1).reshape(2 * x.shape[0], S, m)
+    return x[:K0]
+
+
+# Below this node count the JAX package found the scan and CR within
+# dispatch noise of each other on a TPU v5e, and CR faster above it
+# (nautilus_tpu/solve/band.py:366-371).  Kept for parity; chip_smoke.py
+# times both backends on the H100.
+CR_MIN_NODES = 2000
+
+
+def resolve_band_plan(n: int, w: int, superblock=None, method: str = "auto"):
+    """(superblock, method) of the block-tridiagonal backend.
+
+    method='auto' picks cyclic reduction from CR_MIN_NODES nodes on and the
+    sequential scan below; superblock=None picks 8 for CR and 16 for the
+    scan.  The superblock is raised to the bandwidth w; explicit values
+    pass through otherwise.
+    """
+    if method == "auto":
+        method = "cr" if n >= CR_MIN_NODES else "scan"
+    if superblock is None:
+        superblock = 8 if method == "cr" else 16
+    return max(superblock, w), method
+
+
+def band_factor(sys: BandedSystem, s: int, method: str = "scan"):
+    """BandFactorization (scan) or CRFactorization (cr) of the band."""
     A, B, K, pad_n = _superblock_tridiag(sys, s)
+    if method == "cr":
+        return cr_factor_tridiag(A, B)
+    if method != "scan":
+        raise ValueError(f"method must be 'scan' or 'cr', got {method!r}")
     Ls, Cs, ok = _tridiag_cholesky(A, B)
     return BandFactorization(Ls, Cs, K, pad_n, s, ok)
 
 
-def band_apply_inverse(fac: BandFactorization, r):
+def band_apply_inverse(fac, r):
     """Hb^{-1} r for r [N, 3, m] (multi-RHS) or [N, 3] -> same shape."""
     squeeze = r.dim() == 2
     if squeeze:
         r = r[..., None]
     n, m = r.shape[0], r.shape[-1]
-    rk = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, fac.K * fac.s - n))
-    x = _tridiag_solve(fac.Ls, fac.Cs, rk.reshape(fac.K, fac.s * 3, m))
-    x = x.reshape(fac.K * fac.s, 3, m)[:n]
+    K = -(-n // fac.s)
+    rk = torch.nn.functional.pad(r, (0, 0, 0, 0, 0, K * fac.s - n))
+    rk = rk.reshape(K, fac.s * 3, m)
+    if isinstance(fac, CRFactorization):
+        x = cr_solve_tridiag(fac, rk)
+    else:
+        x = _tridiag_solve(fac.Ls, fac.Cs, rk)
+    x = x.reshape(K * fac.s, 3, m)[:n]
     return x[..., 0] if squeeze else x
 
 
-def _make_node_inverse(sysg: BandedSystem, fac: BandFactorization):
+def _make_node_inverse(sysg: BandedSystem, fac):
     """(closure z -> (Hb + U U^T)^{-1} z, ok flag): the band factorization
     plus the Woodbury correction when the system carries U."""
     n, R = sysg.n, sysg.rank_lr
@@ -215,7 +329,8 @@ def _border_columns(sys: BandedSystem):
 
 
 def band_inverse_node_columns(sys: BandedSystem, fixed, cols,
-                              reg: float = 1e-8):
+                              reg: float = 1e-8, superblock=None,
+                              method: str = "auto"):
     """Columns of H^{-1}: (H^{-1})[:3N, cols] as [3N, m], cols < 3N.
 
     The covariance engine of the loop-closure gate: gauge by ``fixed``,
@@ -223,14 +338,15 @@ def band_inverse_node_columns(sys: BandedSystem, fixed, cols,
     multi-RHS pass (+ Woodbury for long-range closures).  The HITL border
     enters by the block-inverse identity (H^-1)_nn = Hn^-1 + Y S^-1 Y^T,
     Y = Hn^-1 C, S = E - C^T Hn^-1 C.  A failed factorization yields NaN
-    columns, as in the JAX package.
+    columns, as in the JAX package.  superblock and method as in
+    resolve_band_plan.
     """
     sysg = _apply_gauge_band(sys, fixed)
     n = sysg.n
     eye3 = torch.eye(3, dtype=sysg.diag.dtype, device=sysg.diag.device)
     sysg = sysg._replace(diag=sysg.diag + reg * eye3)
-    node_inverse, ok = _make_node_inverse(
-        sysg, band_factor(sysg, resolve_band_plan(sysg.w)))
+    s, method = resolve_band_plan(n, sysg.w, superblock, method)
+    node_inverse, ok = _make_node_inverse(sysg, band_factor(sysg, s, method))
     m = cols.shape[0]
     rhs = (torch.arange(3 * n, device=cols.device)[:, None]
            == cols[None, :]).to(sysg.diag.dtype).reshape(n, 3, m)
@@ -249,7 +365,8 @@ def band_inverse_node_columns(sys: BandedSystem, fixed, cols,
     return torch.where(ok, X, torch.full_like(X, float("nan")))
 
 
-def solve_damped_banded(sys: BandedSystem, fixed, radius, params):
+def solve_damped_banded(sys: BandedSystem, fixed, radius, params,
+                        superblock=None, method: str = "auto"):
     """Solve (H + D/radius) dx = -g in band (+ low-rank, + border) form.
 
     LM-scaled damping on the clipped diagonal of the full H (band + U U^T,
@@ -258,7 +375,7 @@ def solve_damped_banded(sys: BandedSystem, fixed, radius, params):
     Schur complement S = E - C^T Y gives the line step
     dxl = S^-1 (-gl - C^T u) and dx = u - Y dxl.  Returns (step [N + L, 3],
     gauged system, ok): ok is False when a Cholesky failed (the step must be
-    rejected).
+    rejected).  superblock and method as in resolve_band_plan.
     """
     sysg = _apply_gauge_band(sys, fixed)
     n = sysg.n
@@ -269,8 +386,8 @@ def solve_damped_banded(sys: BandedSystem, fixed, radius, params):
     fr = fixed[:3 * n].reshape(n, 3)
     dvec = torch.where(fr, torch.zeros_like(dvec), dvec)
     dsys = sysg._replace(diag=sysg.diag + torch.diag_embed(dvec / radius))
-    node_inverse, ok = _make_node_inverse(
-        dsys, band_factor(dsys, resolve_band_plan(sysg.w)))
+    s, method = resolve_band_plan(n, sysg.w, superblock, method)
+    node_inverse, ok = _make_node_inverse(dsys, band_factor(dsys, s, method))
     L = sysg.num_lines
     if not L:
         return node_inverse(-sysg.g), sysg, ok

@@ -82,12 +82,15 @@ def _trust_region_update(cost, new_cost, model_decrease, step_finite,
 
 
 def lm_loop_banded(x0, assemble_fn, fixed_dof,
-                   params: LMParams = LMParams()) -> LMResult:
+                   params: LMParams = LMParams(), superblock=None,
+                   method: str = "auto") -> LMResult:
     """LM loop where assemble_fn(x) -> (BandedSystem, cost).
 
     The system is re-assembled at every trial point and its cost decides
     acceptance, so no separate cost evaluation runs; on rejection the trial
-    system is dropped."""
+    system is dropped.  superblock and method pick the band backend
+    (band.resolve_band_plan: 'auto' is cyclic reduction from CR_MIN_NODES
+    nodes on, the scan below)."""
     sys, cost = assemble_fn(x0)
     cost0 = cost
     x = x0
@@ -97,7 +100,8 @@ def lm_loop_banded(x0, assemble_fn, fixed_dof,
     it = 0
     converged = done = False
     while not done and it < params.max_iterations:
-        dx, sysg, ok = solve_damped_banded(sys, fixed_dof, radius, params)
+        dx, sysg, ok = solve_damped_banded(sys, fixed_dof, radius, params,
+                                           superblock, method)
         x_new = x + dx
         sys_new, new_cost = assemble_fn(x_new)
         # Model decrease of 0.5 |r + J dx|^2: -(g.dx + 0.5 dx.H.dx), with the
@@ -125,7 +129,8 @@ def lm_loop_banded(x0, assemble_fn, fixed_dof,
 
 
 def lm_solve_banded(x0, graph, fixed_dof, params: LMParams = LMParams(),
-                    layout=None, lr=None) -> LMResult:
+                    layout=None, lr=None, superblock=None,
+                    method: str = "auto") -> LMResult:
     """Run LM to convergence with the block-band linear solver.
 
     Requires the delta-major correspondence layout and every in-graph
@@ -135,4 +140,5 @@ def lm_solve_banded(x0, graph, fixed_dof, params: LMParams = LMParams(),
         x0,
         assemble_fn=lambda x: assemble_banded_system(x, graph, layout,
                                                      "moments", lr),
-        fixed_dof=fixed_dof, params=params)
+        fixed_dof=fixed_dof, params=params, superblock=superblock,
+        method=method)

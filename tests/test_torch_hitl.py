@@ -355,6 +355,7 @@ pose_number=16
 lidar_constraint_amount_max=3
 hitl_line_width=0.3
 pose_output_file="{poses}"
+map_output_file="{lines}"
 """
 CLI_LINE = "-5 -5 5 -5 -5 5 5 5"
 
@@ -364,7 +365,8 @@ def _cli(tmp_path, name, extra, stdin=None, monkeypatch=None):
                 / "default_config.lua", tmp_path / "default_config.lua")
     cfg = tmp_path / f"{name}.lua"
     poses = tmp_path / f"{name}_poses.txt"
-    cfg.write_text(CLI_CFG.format(poses=poses))
+    cfg.write_text(CLI_CFG.format(poses=poses,
+                                  lines=tmp_path / f"{name}_map.csv"))
     if stdin is not None:
         monkeypatch.setattr(sys, "stdin", io.StringIO(stdin))
     rc = torch_cli.main(["--config_file", str(cfg), "--synthetic", "room",
@@ -402,7 +404,12 @@ def test_cli_interactive_loop(tmp_path, monkeypatch, capsys):
                     monkeypatch=monkeypatch)
     out = capsys.readouterr().out
     assert "Error: hitl needs 8 floats" in out
-    assert "Error: vectorize is not yet ported (ROADMAP.md" in out
+    assert "Error: vectorize" not in out
     assert "Unknown command: bogus" in out
     assert out.count("Wrote poses") == 1       # nothing runs after quit
     assert len(read_pose_file(poses)) == 16
+    # The vectorize command wrote the line map: rows of 4 finite numbers.
+    rows = (tmp_path / "interactive_map.csv").read_text().split()
+    assert rows
+    vals = np.array([r.split(",") for r in rows], float)
+    assert vals.shape[1] == 4 and np.all(np.isfinite(vals))

@@ -1,6 +1,8 @@
 """The PyTorch port imports neither jax nor the JAX package."""
 
 import ast
+import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -47,6 +49,70 @@ def test_slice_runs_with_jax_blocked():
                          text=True, timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().startswith("ok")
+
+
+BAG_PATH = """
+import sys
+sys.modules["jax"] = None                 # any jax import now fails
+sys.path.insert(0, {root!r})
+from pathlib import Path
+import numpy as np
+import torch
+from nautilus_tpu_torch import cli
+from nautilus_tpu_torch.ingest import native
+from nautilus_tpu_torch.ingest.synthetic import write_synthetic_bag
+from nautilus_tpu_torch.io.checkpoint import load_state, save_state
+from nautilus_tpu_torch.solve import band
+tmp = Path({tmp!r})
+write_synthetic_bag(tmp / "run.bag", num_nodes=12, world_kind="room",
+                    num_beams=180, seed=2, substeps=2)
+(tmp / "run.lua").write_text(
+    'dofile("default_config.lua")\\nbag_path="' + str(tmp / "run.bag") + '"\\n'
+    'lidar_topic="/scan"\\nodom_topic="/odom"\\npose_number=12\\n'
+    'lidar_constraint_amount_max=3\\n'
+    'pose_output_file="' + str(tmp / "poses.txt") + '"\\n'
+    'map_output_file="' + str(tmp / "map.csv") + '"\\n')
+rc, solver, walls = cli.run(["--config_file", str(tmp / "run.lua"), "--write",
+                             "--vectorize", "--device", "cpu", "--quiet"])
+assert rc == 0 and (tmp / "map.csv").read_text().strip()
+save_state(solver.state, tmp / "session.npz")
+sol = solver.state.solution.copy()
+solver.state.solution[:] = 0
+load_state(solver.state, tmp / "session.npz")
+assert np.array_equal(solver.state.solution, sol)
+A = torch.eye(6).repeat(3, 1, 1) * 4
+fac = band.cr_factor_tridiag(A, torch.zeros_like(A))
+assert bool(fac.ok) and band.resolve_band_plan(2000, 3) == (8, "cr")
+bad = [m for m in sys.modules
+       if m == "nautilus_tpu" or m.startswith("nautilus_tpu.")]
+assert not bad, bad
+print("ok", native.reader_name(), sorted(walls))
+"""
+
+
+def test_bag_path_runs_with_jax_blocked(tmp_path):
+    """The bag CLI path, a checkpoint round trip and the CR backend."""
+    shutil.copy(ROOT / "config" / "default_config.lua", tmp_path)
+    code = BAG_PATH.format(root=str(ROOT), tmp=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT),
+                         env={**os.environ, "HOME": str(tmp_path)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().startswith("ok")
+
+
+def test_native_build_compiles_the_ports_own_source(tmp_path):
+    from nautilus_tpu_torch.ingest import native
+    assert native.SOURCE == PACKAGE / "native" / "bagreader.cc"
+    assert native.SOURCE.is_file()
+    cmd = native.build_command(tmp_path / "lib.so")
+    if cmd is None:
+        return          # no libbz2: the Python reader runs, nothing builds
+    assert str(native.SOURCE) in cmd
+    jax_tree = ROOT / "nautilus_tpu"
+    assert not any(Path(a).is_relative_to(jax_tree) for a in cmd), cmd
+    lib = native.library_path()
+    assert lib.parent == ROOT / "build" / "nautilus_tpu_torch"
 
 
 def test_no_jax_imports_in_package():
