@@ -44,10 +44,29 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 10. CR backend: the 5000-pose building (benchmarks/LARGE_N.md's row)
    through solve_slam, where method='auto' picks block cyclic reduction,
    then scan against CR on the final window's system at N=1000 (phase 6)
-   and N=5000: CUDA-event ms, best of 5, and the steps' difference.
+   and N=5000: CUDA-event ms, best of 5, and the steps' difference;
+11. dense fallback: phase 6's input with lr_factor_cap=8, below the 27
+   closures auto-LC accepts: solve_slam and the gate run on the band, the
+   fused coarse kernel scores the gated pairs, and the re-solve resolves to
+   the dense Cholesky route on the 3000 x 3000 system; its final cost and
+   closed ATE against phase 6's Woodbury re-solve, then the dense
+   covariance engine's chi-square scores on the gated pairs against the
+   band engine's, with walls and the phase's peak device memory;
+12. the other routes on the same input: linear_solver="dense" through
+   solve_slam (per-window costs against phase 6), linear_solver="cg"
+   through solve_max_window on phase 11's closed graph with the band
+   preconditioner (final cost against the dense re-solve, LM steps, inner
+   CG iterations), solver_dtype=float64 through make_problem -> solve_slam
+   -> solve_auto_lc (costs beside float32's, counts, ATE, fused launches);
+13. the small routes at the main path's width: optimization type ALL
+   through solve_slam on phase 6's input (1000 poses, 720 beams, chunks of
+   64 pairs), then on a 200-pose building at 720 beams against the CPU (per
+   window final costs and poses); Hough normals on phase 6's scans against
+   the CPU and against the PCA normals; and the descriptor gate on phase
+   6's gated pairs, card against CPU.
 
-Each path (6, 7, 8, 9, 10) starts with every launch count at 0 and reads
-them when it ends.  Exits non-zero on any failure.  The last line is one JSON object
+Each path (6 to 13) starts with every launch count at 0 and reads them
+when it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
 their path; times, bound and library call at the main path's shapes; the
@@ -88,6 +107,41 @@ F32_ADDS_PER_S = F32_FLOPS_PER_S / 2
 # Shared memory moves 128 bytes per clock on each of 132 SMs; 1.98 GHz is
 # the card's highest SM clock.
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
+
+
+# Phase 11: the dense re-solve against phase 6's Woodbury re-solve of the
+# same closures (final cost, closed ATE in m), and the chi-square scores of
+# the float32 dense and band covariance engines against each other and
+# against a float64 dense engine.  A score is d^T C^-1 d with C a 2 x 2
+# block of the inverse of a 3000-dof float32 Hessian: at 16 poses the
+# engines agree within 5e-3 (tests/test_torch_dense_lm.py), at 1000 poses
+# float32 leaves percents, and float64 says which engine is off.
+DENSE_COST_RTOL = 1e-4
+DENSE_ATE_ATOL = 1e-3
+# Each float32 engine's bar against the float64 referee, about three times
+# what the H100 showed at 1000 poses (dense 3.0e-3, band 9.9e-3), and the
+# two float32 engines against each other, the sum of the two.
+GATE_SCORE_REL = {"dense": 1e-2, "band": 3e-2, "dense vs band": 4e-2}
+# Phase 12: CG's final cost against the dense re-solve's (the bar between
+# the JAX package's dense and CG sweeps, tests/test_cg.py).
+CG_COST_REL = 5e-3
+# Closures that phase 11 lets ride the band as Woodbury columns.
+LR_CAP = 8
+# Phase 13.  Optimization type ALL: the card's per-window final costs and
+# poses against the CPU's on a building of ALL_CPU_POSES poses at the main
+# path's beam count (the CPU needs minutes for the 1000 poses the card
+# sweeps).  Hough normals, card against CPU on the main path's scans: where
+# the winning bin is the same the normals agree within HOUGH_ATOL, as
+# tests/test_torch_hough.py holds the port to the JAX package; rsqrt and
+# acos differ in the last bit between the devices, so a point whose two best
+# bins tie or differ by one vote may change bins: HOUGH_MOVED_SHARE of the
+# points may.  HOUGH_PCA_SHARE of them lie within 20 degrees of the PCA
+# normal (the same test's bar).
+ALL_CPU_POSES = 200
+ALL_COST_RTOL = 1e-3
+HOUGH_ATOL = 1e-4
+HOUGH_MOVED_SHARE = 1e-4
+HOUGH_PCA_SHARE = 0.5
 
 
 # Scan against CR: the steps' largest difference relative to the scan's
@@ -510,7 +564,8 @@ def final_window_system(solver):
     from nautilus_tpu_torch.solve.factors import assemble_banded_system
     x = solver._current_x()
     graph = solver.build_graph(
-        x, solver.config.get_int("lidar_constraint_amount_max"))
+        x, solver.config.get_int("lidar_constraint_amount_max"),
+        exclude_long_range=True)
     sys_, _ = assemble_banded_system(x, graph, solver._layout, "moments",
                                      solver._long_range_factors())
     radius = torch.tensor(solver.lm_params.initial_radius, device=x.device)
@@ -776,9 +831,7 @@ def cr_phase(cfg, dev, zero_counts, read_counts, n=5000):
     sol = state.solution
     print(f"  solve_slam wall {t_solve!r} s; band factorizations {used}; per "
           "window (window, iterations, initial cost, final cost, wall s):")
-    for st in stats.windows:
-        print(f"    {st.window} {st.iterations} {st.initial_cost!r} "
-              f"{st.final_cost!r} {st.wall_s!r}")
+    print_windows(stats)
     print(f"  ATE m: odometry {ate(x0, gt)['trans_rmse']!r} solved "
           f"{ate(sol, gt)['trans_rmse']!r}; kernel launches {read_counts()}",
           flush=True)
@@ -794,6 +847,416 @@ def cr_phase(cfg, dev, zero_counts, read_counts, n=5000):
     return solver
 
 
+def fresh_state(state, solution):
+    """``state``'s problem at ``solution`` with no closure and no HITL
+    constraint, on the ingest-time odometry."""
+    import numpy as np
+    return dataclasses.replace(
+        state, solution=solution.copy(), lc_factors=[], hitl_constraints=[],
+        line_poses=np.zeros((0, 3)),
+        odometry_factors=state.initial_odometry_factors)
+
+
+def timed(fn):
+    """(result, wall seconds) of fn() with the device drained on both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def print_windows(stats):
+    for w in stats.windows:
+        print(f"    {w.window} {w.iterations} {w.initial_cost!r} "
+              f"{w.final_cost!r} {w.wall_s!r}")
+
+
+def dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
+                         read_counts):
+    """Phase 11.  phase6: dict with the main path's report (which holds
+    its re-solve's stats), closed ATE and odometry ATE.  Returns what phase 12 builds on."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.loop_closure import auto_lc
+    from nautilus_tpu_torch.loop_closure.matcher import (
+        CHI_SQUARE_THRESHOLD, LCMatcher)
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.utils.metrics import ate
+
+    cfg11 = cfg.replace(lr_factor_cap=LR_CAP)
+    st = fresh_state(state, x0)
+    solver = Solver(st, cfg11)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stats, t_solve = timed(solver.solve_slam)
+    solved_with = solver.last_solver
+    x_solved = st.solution.copy()
+    report, t_lc = timed(lambda: auto_lc.solve_auto_lc(solver, apply=True,
+                                                       verbose=False))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = (len(report.candidates), len(report.gated_pairs),
+         len(report.accepted))
+    ref = phase6["report"]
+    n_ref = (len(ref.candidates), len(ref.gated_pairs), len(ref.accepted))
+    ate_closed = ate(st.solution, gt)["trans_rmse"]
+    print(f"  lr_factor_cap={LR_CAP}: solve_slam on {solved_with!r} wall "
+          f"{t_solve!r} s, final cost {stats.final_cost!r}; auto-LC wall "
+          f"{t_lc!r} s, stages {report.stage_walls}")
+    print(f"  candidates/gated/accepted {n[0]}/{n[1]}/{n[2]} (phase 6: "
+          f"{n_ref[0]}/{n_ref[1]}/{n_ref[2]}); re-solve resolved to "
+          f"{solver.last_solver!r} on a {3 * st.num_nodes} x "
+          f"{3 * st.num_nodes} system; kernel launches {counts}")
+    if report.resolve_stats is None:
+        fail("auto-LC applied no closure in the dense-fallback phase")
+    dense = report.resolve_stats.windows[0]
+    band = phase6["report"].resolve_stats.windows[0]
+    print(f"  re-solve at window {dense.window}: dense {dense.iterations} LM "
+          f"steps, cost {dense.initial_cost!r} -> {dense.final_cost!r}, wall "
+          f"{dense.wall_s!r} s; phase 6's band + Woodbury re-solve "
+          f"{band.iterations} LM steps, cost {band.initial_cost!r} -> "
+          f"{band.final_cost!r}, wall {band.wall_s!r} s")
+    print(f"  closed ATE m: dense {ate_closed!r}, phase 6 "
+          f"{phase6['ate_closed']!r} (odometry {phase6['ate_odom']!r}); "
+          f"peak device memory in this phase {peak!r} GiB", flush=True)
+    if solved_with != "band":
+        fail(f"the solve before any closure ran on {solved_with!r}, not band")
+    if solver.last_solver != "dense":
+        fail(f"the re-solve past the closure cap ran on "
+             f"{solver.last_solver!r}, not dense")
+    if counts["fused_coarse"] == 0:
+        fail("the dense-fallback path never launched the fused coarse kernel")
+    if n != n_ref:
+        fail(f"candidates/gated/accepted {n} differ from phase 6's {n_ref}")
+    if not np.all(np.isfinite(st.solution)):
+        fail("non-finite poses after the dense re-solve")
+    if abs(dense.final_cost - band.final_cost) \
+            > DENSE_COST_RTOL * band.final_cost:
+        fail(f"dense re-solve cost {dense.final_cost} differs from the "
+             f"Woodbury re-solve's {band.final_cost} by more than rtol "
+             f"{DENSE_COST_RTOL}")
+    if not ate_closed < phase6["ate_odom"] \
+            or abs(ate_closed - phase6["ate_closed"]) > DENSE_ATE_ATOL:
+        fail(f"dense closed ATE {ate_closed} is not below odometry's or not "
+             f"within {DENSE_ATE_ATOL} m of phase 6's {phase6['ate_closed']}")
+
+    # The gate's two covariance engines on the closed state: past the cap
+    # from_solver takes the dense Cholesky, under the default cap the band
+    # with 3 Woodbury columns per closure.  A float64 dense engine on the
+    # same state referees the two float32 ones.
+    pairs = list(report.gated_pairs)
+    as64 = {f: getattr(st.problem, f).double()
+            for f in ("points", "normals", "initial_poses", "odom_trans",
+                      "odom_rot")}
+    st64 = dataclasses.replace(st, problem=st.problem._replace(**as64))
+    engines = {"dense": solver, "band": Solver(st, cfg),
+               "float64": Solver(st64, cfg11)}
+    scores, walls = {}, {}
+    for name, sv in engines.items():
+        matcher, t_build = timed(lambda: LCMatcher.from_solver(sv))
+        if (matcher.H is not None) != (name != "band"):
+            fail(f"LCMatcher.from_solver took the wrong engine for {name}")
+        out, t_score = timed(lambda: matcher._scores(pairs))
+        scores[name] = np.array([sc for _, sc in out])
+        walls[name] = (t_build, t_score)
+        if not np.all(np.isfinite(scores[name])):
+            fail(f"a covariance factorization failed on the closed map "
+                 f"({name} engine: non-finite chi-square score)")
+    groups = len({max(min(s, t) - 1, 0) for s, t in pairs})
+
+    def rel(a, b):
+        d = np.abs(scores[a] - scores[b]) / np.abs(scores[b])
+        return float(d.max()), pairs[int(d.argmax())]
+
+    (r_db, p_db), (r_d, p_d), (r_b, p_b) = (
+        rel("dense", "band"), rel("dense", "float64"), rel("band", "float64"))
+    print(f"  gate on the closed map, {len(pairs)} pairs in {groups} gauge "
+          f"groups: dense engine build {walls['dense'][0]!r} s + scores "
+          f"{walls['dense'][1]!r} s, band engine build {walls['band'][0]!r} "
+          f"s + scores {walls['band'][1]!r} s (float64 dense referee "
+          f"{walls['float64'][0]!r} + {walls['float64'][1]!r} s)")
+    f64 = scores["float64"]
+    k_near = int(np.abs(f64 - CHI_SQUARE_THRESHOLD).argmin())
+    print(f"  max relative chi-square difference: dense vs float64 {r_d!r} "
+          f"(pair {p_d}, tolerance {GATE_SCORE_REL['dense']}), band vs "
+          f"float64 {r_b!r} (pair {p_b}, tolerance "
+          f"{GATE_SCORE_REL['band']}), dense vs band {r_db!r} (pair {p_db}, "
+          f"tolerance {GATE_SCORE_REL['dense vs band']}); float64 scores "
+          f"span {float(f64.min())!r} to {float(f64.max())!r}")
+    print(f"  score nearest the chi-square threshold "
+          f"{CHI_SQUARE_THRESHOLD}: pair {pairs[k_near]}, float64 "
+          f"{float(f64[k_near])!r}, dense {float(scores['dense'][k_near])!r}, "
+          f"band {float(scores['band'][k_near])!r}; margin "
+          f"{abs(float(f64[k_near]) - CHI_SQUARE_THRESHOLD) / CHI_SQUARE_THRESHOLD!r}"
+          f" of the threshold", flush=True)
+    for name, r in (("dense", r_d), ("band", r_b), ("dense vs band", r_db)):
+        if r > GATE_SCORE_REL[name]:
+            fail(f"chi-square scores, {name}: relative difference {r} "
+                 f"exceeds {GATE_SCORE_REL[name]}")
+    passes = {k: v < CHI_SQUARE_THRESHOLD for k, v in scores.items()}
+    if not (np.array_equal(passes["dense"], passes["float64"])
+            and np.array_equal(passes["band"], passes["float64"])):
+        fail("the covariance engines disagree on which pairs pass the "
+             "chi-square threshold")
+    return {"x_solved": x_solved, "lc_factors": list(st.lc_factors),
+            "dense_resolve": dense, "cfg": cfg11, "launches": counts}
+
+
+def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
+                       read_counts, n=1000, beams=720):
+    """Phase 12: whole solves on dense, CG and float64 (n and beams are the
+    main path's input, which the float64 run builds again)."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.ingest.synthetic import make_problem
+    from nautilus_tpu_torch.loop_closure import auto_lc
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.utils.metrics import ate
+
+    # -- dense, the whole growing-window sweep --------------------------------
+    zero_counts()
+    st = fresh_state(state, x0)
+    solver = Solver(st, cfg, linear_solver="dense")
+    stats, wall = timed(solver.solve_slam)
+    print(f"  linear_solver='dense' solve_slam wall {wall!r} s (phase 6 on "
+          f"the band {stats6.total_wall_s!r} s); per window (window, "
+          "iterations, initial cost, final cost, wall s), then phase 6's "
+          "final cost:")
+    for w, w6 in zip(stats.windows, stats6.windows):
+        print(f"    {w.window} {w.iterations} {w.initial_cost!r} "
+              f"{w.final_cost!r} {w.wall_s!r} | {w6.final_cost!r}")
+    if solver.last_solver != "dense":
+        fail(f"linear_solver='dense' ran on {solver.last_solver!r}")
+    if not np.all(np.isfinite(st.solution)):
+        fail("non-finite poses after the dense sweep")
+    if abs(stats.final_cost - stats6.final_cost) \
+            > DENSE_COST_RTOL * stats6.final_cost:
+        fail(f"dense sweep final cost {stats.final_cost} differs from the "
+             f"band sweep's {stats6.final_cost} by more than rtol "
+             f"{DENSE_COST_RTOL}")
+
+    # -- CG on phase 11's closed graph, from the point its re-solve began ----
+    st = fresh_state(state, phase11["x_solved"])
+    st.lc_factors = list(phase11["lc_factors"])
+    solver = Solver(st, phase11["cfg"], linear_solver="cg")
+    stats, wall = timed(solver.solve_max_window)
+    w, dense = stats.windows[0], phase11["dense_resolve"]
+    inner = w.inner_iterations
+    precond = "band" if solver._odom_within_band() else "block Jacobi"
+    print(f"  linear_solver='cg' solve_max_window on the closed graph "
+          f"({len(st.lc_factors)} closures, {precond} preconditioner): wall "
+          f"{wall!r} s, {w.iterations} LM steps, {inner} inner CG "
+          f"iterations, cost {w.initial_cost!r} -> "
+          f"{w.final_cost!r}; dense re-solve {dense.final_cost!r} in "
+          f"{dense.wall_s!r} s; {wall / max(inner, 1)!r} s per inner "
+          f"iteration, the LM steps' own work included", flush=True)
+    if inner == 0:
+        fail("the CG solve reports no inner iteration")
+    if solver.last_solver != "cg" or precond != "band":
+        fail("the CG route did not run with the band preconditioner")
+    if not np.all(np.isfinite(st.solution)):
+        fail("non-finite poses after the CG solve")
+    if abs(w.final_cost - dense.final_cost) > CG_COST_REL * dense.final_cost:
+        fail(f"CG final cost {w.final_cost} differs from the dense "
+             f"re-solve's {dense.final_cost} by more than {CG_COST_REL}")
+    print(f"  kernel launches on the dense and CG routes: {read_counts()}")
+
+    # -- float64, from make_problem to the closed map --------------------------
+    zero_counts()
+    (st, _), t_pre = timed(lambda: make_problem(
+        n, "building", num_beams=beams, seed=1, odom_noise_trans=0.02,
+        odom_noise_rot=0.008, device=dev, dtype=torch.float64))
+    if st.problem.points.dtype != torch.float64:
+        fail("make_problem(dtype=float64) built a float32 problem")
+    solver = Solver(st, cfg)
+    stats, t_solve = timed(solver.solve_slam)
+    report, t_lc = timed(lambda: auto_lc.solve_auto_lc(solver, apply=True,
+                                                       verbose=False))
+    counts = read_counts()
+    n = (len(report.candidates), len(report.gated_pairs),
+         len(report.accepted))
+    ate_closed = ate(st.solution, gt)["trans_rmse"]
+    print(f"  solver_dtype=float64: preprocess {t_pre!r} s, solve_slam "
+          f"{t_solve!r} s (float32 {stats6.total_wall_s!r} s), auto-LC "
+          f"{t_lc!r} s, stages {report.stage_walls}")
+    print("  per window (window, iterations, float64 final cost | float32 "
+          "final cost):")
+    for w, w6 in zip(stats.windows, stats6.windows):
+        print(f"    {w.window} {w.iterations} {w.final_cost!r} | "
+              f"{w6.final_cost!r}")
+    print(f"  float64 candidates/gated/accepted {n[0]}/{n[1]}/{n[2]} "
+          f"(float32: 22/49/27; the gate reads a covariance, so a pair near "
+          f"the chi-square threshold may change sides); re-solve final cost "
+          f"{getattr(report.resolve_stats, 'final_cost', None)!r}; closed ATE "
+          f"{ate_closed!r} m; kernel launches from the float64 problem "
+          f"{counts}", flush=True)
+    if not np.all(np.isfinite(st.solution)) or not report.applied:
+        fail("the float64 path gave non-finite poses or applied no closure")
+    if counts["fused_coarse"] == 0:
+        fail("the float64 problem never launched the fused coarse kernel")
+    # Float32 holds the final cost to ~1e-6 of float64's; 1e-4 is the bar
+    # the port's float32 solve is held to against the JAX package.
+    if abs(stats.final_cost - stats6.final_cost) \
+            > DENSE_COST_RTOL * stats6.final_cost:
+        fail(f"float64 final cost {stats.final_cost} is not within rtol "
+             f"{DENSE_COST_RTOL} of float32's {stats6.final_cost}")
+    if not ate_closed < ate(x0, gt)["trans_rmse"]:
+        fail("float64 closed ATE is not below odometry's")
+    return {"fused_launches_f64": counts["fused_coarse"]}
+
+
+def on_cpu(state):
+    """``state`` with its problem's tensors copied to the CPU and its own
+    host arrays."""
+    from nautilus_tpu_torch.core.problem import SLAMProblem
+    return dataclasses.replace(
+        state, solution=state.solution.copy(), lc_factors=[],
+        hitl_constraints=[],
+        problem=SLAMProblem(*[t.cpu() for t in state.problem]))
+
+
+def all_route_phase(cfg, dev, state, x0, n_cpu=ALL_CPU_POSES, beams=720):
+    """Phase 13, optimization type ALL: the main path's input (every pose,
+    every beam) on the card, then a building of ``n_cpu`` poses at the same
+    beam count on the card against the CPU."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.ingest.synthetic import make_problem
+    from nautilus_tpu_torch.solve.solver import Solver
+
+    def sweep(st):
+        solver = Solver(st, cfg)
+        stats, wall = timed(lambda: solver.solve_slam(optimization_type="all"))
+        if not np.all(np.isfinite(st.solution)):
+            fail("non-finite poses after the ALL-type solve")
+        return solver, stats, wall
+
+    def describe(st, solver, stats, wall, where):
+        q = len(solver.pairs.src)
+        print(f"  optimization_type='all' on {where}: {st.num_nodes} poses, "
+              f"P={st.problem.points.shape[1]}, {q} pairs in "
+              f"{-(-q // 64)} chunks of 64 per association, "
+              f"{len(stats.windows)} associations: solve_slam wall {wall!r} s "
+              f"on {solver.last_solver!r}", flush=True)
+
+    st = fresh_state(state, x0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solver, stats, wall = sweep(st)
+    describe(st, solver, stats, wall, "the card, the main path's input")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak!r} GiB; per window "
+          "(window, iterations, initial cost, final cost, wall s):")
+    print_windows(stats)
+    for w in stats.windows:
+        if w.final_cost > w.initial_cost:
+            fail(f"ALL-type window {w.window}: final cost {w.final_cost} "
+                 f"exceeds the initial {w.initial_cost}")
+
+    st_card, _ = make_problem(n_cpu, "building", num_beams=beams, seed=1,
+                              odom_noise_trans=0.02, odom_noise_rot=0.008,
+                              device=dev)
+    st_cpu = on_cpu(st_card)
+    sv, card, wall = sweep(st_card)
+    describe(st_card, sv, card, wall, "the card")
+    t0 = time.perf_counter()
+    sv_cpu, cpu, _ = sweep(st_cpu)
+    describe(st_cpu, sv_cpu, cpu, time.perf_counter() - t0, "the CPU")
+    d_pose = float(np.abs(st_card.solution - st_cpu.solution).max())
+    print(f"  per window (window, card iterations, card final cost | CPU "
+          f"iterations, CPU final cost), tolerance rtol {ALL_COST_RTOL}; max "
+          f"|d pose| {d_pose!r} (tolerance {POSE_ATOL}):")
+    for w, c in zip(card.windows, cpu.windows):
+        print(f"    {w.window} {w.iterations} {w.final_cost!r} | "
+              f"{c.iterations} {c.final_cost!r}")
+    for w, c in zip(card.windows, cpu.windows):
+        if abs(w.final_cost - c.final_cost) > ALL_COST_RTOL * c.final_cost:
+            fail(f"ALL-type window {w.window}: final cost on the card "
+                 f"{w.final_cost} differs from the CPU's {c.final_cost} by "
+                 f"more than rtol {ALL_COST_RTOL}")
+    if d_pose > POSE_ATOL:
+        fail(f"ALL-type poses on the card differ from the CPU's by {d_pose}")
+
+
+def hough_phase(state):
+    """Phase 13, Hough normals: every scan of the main path's input on the
+    card against the same scans on the CPU, and against the PCA normals."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.core import preprocess as pre
+
+    pts, msk = state.problem.points, state.problem.points_mask
+    params = pre.NormalParams(method="hough")
+    hough, t_hough = timed(lambda: pre.compute_normals(pts, msk, params))
+    pca, t_pca = timed(lambda: pre.compute_normals(pts, msk,
+                                                   pre.NormalParams()))
+    t0 = time.perf_counter()
+    ref = pre.compute_normals(pts.cpu(), msk.cpu(), params)
+    t_cpu = time.perf_counter() - t0
+    err = (hough.cpu() - ref).abs().amax(dim=-1)[msk.cpu()]
+    moved = int((err > HOUGH_ATOL).sum())
+    cos = torch.abs(torch.sum(hough * pca, dim=-1))[msk]
+    share = float((cos > np.cos(np.deg2rad(20.0))).float().mean())
+    unit = float((torch.linalg.vector_norm(hough, dim=-1)[msk] - 1).abs()
+                 .max())
+    print(f"  Hough normals on {tuple(pts.shape[:2])} scans x points "
+          f"({err.numel()} valid): card {t_hough!r} s, CPU {t_cpu!r} s (PCA "
+          f"on the card {t_pca!r} s); card against CPU: {moved} points "
+          f"beyond {HOUGH_ATOL} ({int((err > 1e-2).sum())} of them beyond "
+          f"1e-2: a changed bin; at most {HOUGH_MOVED_SHARE} of the points "
+          f"may), largest difference among the others "
+          f"{float(err[err <= HOUGH_ATOL].max())!r}; share of points within "
+          f"20 degrees of the PCA normal {share!r} (at least "
+          f"{HOUGH_PCA_SHARE}); max | |n| - 1 | {unit!r}", flush=True)
+    if not bool(torch.isfinite(hough).all()) or unit > 1e-5:
+        fail("Hough normals are not finite unit vectors")
+    if bool((hough[~msk] != 0).any()):
+        fail("Hough normals of masked points are not zero")
+    if moved > HOUGH_MOVED_SHARE * err.numel():
+        fail(f"{moved} of {err.numel()} Hough normals on the card differ "
+             f"from the CPU's by more than {HOUGH_ATOL}")
+    if share < HOUGH_PCA_SHARE:
+        fail(f"only {share} of the Hough normals lie within 20 degrees of "
+             f"the PCA normals")
+
+
+def descriptor_gate_phase(cfg, state_at_gate, gated_pairs, read_counts):
+    """Phase 13, the descriptor gate on the main path's gated pairs, card
+    against CPU, then through solve_auto_lc's branch."""
+    from nautilus_tpu_torch.loop_closure import auto_lc
+    from nautilus_tpu_torch.solve.solver import Solver
+
+    threshold = float(cfg.get("lc_match_threshold", 0.5))
+    kept, choice, t_gate = {}, {}, {}
+    for name, s in (("cuda", state_at_gate), ("cpu", on_cpu(state_at_gate))):
+        t0 = time.perf_counter()
+        kept[name] = auto_lc.descriptor_gate(s, gated_pairs, threshold, None)
+        t_gate[name] = time.perf_counter() - t0
+        choice[name] = s._descriptor_gate_choice
+    c = choice["cuda"]
+    print(f"  descriptor gate (lc_match_threshold={threshold}) on "
+          f"{len(gated_pairs)} gated pairs: self-check picked "
+          f"{c['scorer']!r} (AUC embedding {c['auc_emb']!r}, hand "
+          f"{c['auc_hand']!r}; on the CPU {choice['cpu']}), kept "
+          f"{len(kept['cuda'])} on the card in {t_gate['cuda']!r} s, "
+          f"{len(kept['cpu'])} on the CPU in {t_gate['cpu']!r} s")
+    if c["scorer"] != choice["cpu"]["scorer"] or kept["cuda"] != kept["cpu"]:
+        fail("the descriptor gate chose another scorer or kept another set "
+             "on the card than on the CPU")
+    solver = Solver(state_at_gate, cfg)
+    rep, wall = timed(lambda: auto_lc.solve_auto_lc(
+        solver, apply=False, verbose=False, use_descriptor_gate=True))
+    print(f"  solve_auto_lc(use_descriptor_gate=True, apply=False): "
+          f"{len(rep.gated_pairs)} pairs to CSM, {len(rep.accepted)} above "
+          f"the score threshold, wall {wall!r} s; kernel launches "
+          f"{read_counts()}", flush=True)
+    if rep.gated_pairs != kept["cuda"]:
+        fail("solve_auto_lc's descriptor gate kept another set than "
+             "descriptor_gate on the same pairs")
+
+
 def main():
     if not (ROOT / "nautilus_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -807,7 +1270,7 @@ def main():
 
     # -- 1. environment ------------------------------------------------------
     t_all = time.perf_counter()
-    print("[1/10] environment", flush=True)
+    print("[1/13] environment", flush=True)
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
     from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
@@ -830,7 +1293,7 @@ def main():
         return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    print("[2/10] build: one nvcc per kernel source, started together",
+    print("[2/13] build: one nvcc per kernel source, started together",
           flush=True)
     sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
     t0 = time.perf_counter()
@@ -845,7 +1308,7 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    print(f"[3/10] fused coarse kernel against plain (bench shapes at C=8 and "
+    print(f"[3/13] fused coarse kernel against plain (bench shapes at C=8 and "
           f"at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
           f"gdc_2020 range)", flush=True)
     cases = [kernel_case(dev, scan_range=30.0),
@@ -854,7 +1317,7 @@ def main():
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    print(f"[4/10] correlation kernel against plain (the pair engine's batch "
+    print(f"[4/13] correlation kernel against plain (the pair engine's batch "
           f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
           f"table in global memory)", flush=True)
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
@@ -865,7 +1328,7 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    print("[5/10] small-input reference: card vs CPU", flush=True)
+    print("[5/13] small-input reference: card vs CPU", flush=True)
     small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -875,7 +1338,7 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    print("[6/10] main path: make_problem(1000, building, 720 beams, seed 1) "
+    print("[6/13] main path: make_problem(1000, building, 720 beams, seed 1) "
           "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses",
           flush=True)
     from nautilus_tpu_torch.core.luaconf import load_config
@@ -916,9 +1379,7 @@ def main():
     print(f"  preprocess (synthesize + normals + features) wall {t_pre!r} s")
     print(f"  solve_slam wall {t_solve!r} s; per window "
           "(window, iterations, initial cost, final cost, wall s):")
-    for w in stats.windows:
-        print(f"    {w.window} {w.iterations} {w.initial_cost!r} "
-              f"{w.final_cost!r} {w.wall_s!r}")
+    print_windows(stats)
     print(f"  final cost {stats.final_cost!r} (BENCH_r05 f64 cost at the JAX "
           f"solution: {BENCH_R05['final_cost']})")
     print(f"  auto-LC wall {t_lc!r} s; stages {report.stage_walls}")
@@ -948,7 +1409,7 @@ def main():
     system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    print("[7/10] pair engine: bench.py's CSM leg, then the main path's gated "
+    print("[7/13] pair engine: bench.py's CSM leg, then the main path's gated "
           "pairs through engine='pair' against engine='stage'", flush=True)
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
@@ -994,7 +1455,7 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    print(f"[8/10] HITL: bench.py's scripted constraint (lines "
+    print(f"[8/13] HITL: bench.py's scripted constraint (lines "
           f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map",
           flush=True)
     from nautilus_tpu_torch.cli import apply_hitl_line
@@ -1049,20 +1510,48 @@ def main():
              f"({cost_start} -> {hitl_costs[0]})")
 
     # -- 9. bag path ------------------------------------------------------------
-    print("[9/10] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+    print("[9/13] bag path: bench.py's GDC-scale bag (1000 poses, building, "
           "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
           "--write --vectorize and auto_lc=true", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         bag_path_phase(Path(tmp), zero_counts, read_counts)
 
     # -- 10. CR backend -----------------------------------------------------------
-    print("[10/10] CR backend: make_problem(5000, building, 720 beams, seed 1) "
+    print("[10/13] CR backend: make_problem(5000, building, 720 beams, seed 1) "
           "-> solve_slam, then scan against CR at N=1000 and N=5000",
           flush=True)
     solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
     scan_vs_cr("closed map of phase 6", solver, system_1000)
     scan_vs_cr("5000-pose solve", solver_5000,
                final_window_system(solver_5000))
+    del solver_5000
+
+    # -- 11. dense fallback -----------------------------------------------------
+    print(f"[11/13] dense fallback: phase 6's input with lr_factor_cap="
+          f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
+          "on dense Cholesky; then the gate's dense engine against its band "
+          "engine", flush=True)
+    phase6 = {"report": report, "ate_closed": ate_closed,
+              "ate_odom": ate_odom}
+    phase11 = dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
+                                   read_counts)
+
+    # -- 12. the other routes ---------------------------------------------------
+    print("[12/13] other routes on the same input: dense sweep, CG on the "
+          "closed graph, float64 from make_problem to the closed map",
+          flush=True)
+    phase12 = other_routes_phase(cfg, state, x0, gt, stats, phase11, dev,
+                                 zero_counts, read_counts)
+
+    # -- 13. the small routes ---------------------------------------------------
+    print("[13/13] small routes at the main path's width: optimization type "
+          "ALL, Hough normals, the descriptor gate on phase 6's gated pairs",
+          flush=True)
+    zero_counts()
+    all_route_phase(cfg, dev, state, x0)
+    hough_phase(state)
+    descriptor_gate_phase(cfg, fresh_state(state, x_solved),
+                          list(report.gated_pairs), read_counts)
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")
@@ -1070,8 +1559,9 @@ def main():
         fail("jax or the JAX package was imported")
     print(f"total wall {time.perf_counter() - t_all!r} s", flush=True)
 
-    def record(name, source, replaces, launches, err, shape, bound_kind):
-        return {"name": name, "route": "cuda", "source": source,
+    def record(name, source, replaces, launches, err, shape, bound_kind,
+               **more):
+        return {**more, "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": shape["ms"],
                 "plain_ms": shape["plain_ms"], "bound_ms": shape["bound_ms"],
@@ -1084,7 +1574,9 @@ def main():
                "nautilus_tpu_torch/kernels/csrc/csm_coarse.cu",
                "nautilus_tpu/kernels/csm_pallas.py:82", launches,
                max(c["max_abs_err"] for c in cases), main_shape,
-               "float32 adds at 33.5e12/s (67 TFLOP/s counts an FMA as 2)"),
+               "float32 adds at 33.5e12/s (67 TFLOP/s counts an FMA as 2)",
+               launches_dense_fallback=phase11["launches"]["fused_coarse"],
+               launches_float64=phase12["fused_launches_f64"]),
         record("correlate",
                "nautilus_tpu_torch/kernels/csrc/csm_correlate.cu",
                "nautilus_tpu/kernels/csm_pallas.py:43",

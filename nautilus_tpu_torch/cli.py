@@ -155,6 +155,10 @@ def run(argv=None):
 
     cfg = load_config(args.config_file)
     validate_config(cfg, require_bag=not args.synthetic)
+    if int(cfg.get("mesh_devices", 0)) > 1:
+        raise NotImplementedError(
+            "mesh_devices > 1 is not yet ported (ROADMAP.md section 1, "
+            "'sharded')")
     walls = {}
     if not args.synthetic and not cfg.bag_path:
         print("Must specify an input bag!")
@@ -168,7 +172,8 @@ def run(argv=None):
         load_solution(state, args.solution_poses, verbose=verbose)
 
     solver = Solver(state, cfg,
-                    linear_solver=cfg.get("linear_solver", "auto"))
+                    linear_solver=cfg.get("linear_solver", "auto"),
+                    assembly=cfg.get("assembly", None) or None)
     t0 = time.perf_counter()
     stats = solver.solve_slam()
     walls["solve"] = time.perf_counter() - t0

@@ -1,10 +1,14 @@
-"""Batched per-scan preprocessing: PCA normals + LOAM-style features
-(port of nautilus_tpu/core/preprocess.py).
+"""Batched per-scan preprocessing: normals + LOAM-style features (port of
+nautilus_tpu/core/preprocess.py).
 
-- Normals: for each point, neighbours within the smallest radius of a fixed
-  growth schedule that holds >= 2 points; the normal is the minor
-  eigenvector of the neighbourhood scatter, canonicalized to the upper
-  half-plane.
+- PCA normals (the default): for each point, neighbours within the
+  smallest radius of a fixed growth schedule that holds >= 2 points; the
+  normal is the minor eigenvector of the neighbourhood scatter,
+  canonicalized to the upper half-plane.
+- Hough normals (``method="hough"``): each point's k nearest neighbours
+  within the largest radius form pair lines in a fixed order; every line's
+  normal angle votes into a circular accumulator, and the winning bin's
+  mean angle is the normal.
 - Smoothness: lambda_min / lambda_max of an index-window neighbourhood
   (distance-filtered on both sides, >= min_neighbors neighbours).
 - Greedy selection: planar = lowest scores at or below the threshold, edge =
@@ -12,8 +16,7 @@
 
 Scans are processed in chunks with the batch dimension written out; the
 greedy selection is a Python loop over the candidate order, batched over
-all scans.  Only the PCA normal estimator is ported (the Hough variant is
-on the ROADMAP).
+all scans.
 
 Summation order.  Straight walls give many points whose smoothness score
 is rounding noise around 0, and the greedy selection sorts those scores:
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -161,6 +165,62 @@ def _scan_normals(points, mask, params: NormalParams):
     return torch.where(mask[..., None], normal, torch.zeros_like(normal))
 
 
+def _scan_normals_hough(points, mask, params: NormalParams):
+    """Hough-accumulator normals for a chunk of scans: points [B, P, 2],
+    mask [B, P] -> [B, P, 2].
+
+    The k_neighbors nearest neighbours of each point (self excluded) that
+    lie within the largest growth radius, and always the nearest one, form
+    pair lines (i < j) in index order, capped at 1 / (2 mean_distance^2)
+    pairs.  Each line's normal angle acos(n . x) in [0, pi] votes into
+    bin_number bins of width 2 pi / bin_number (bin = round(angle / width));
+    the first bin with the most votes wins, and the normal is at the mean
+    angle of its votes.  Deterministic: no random sampling.
+    """
+    dtype, dev = points.dtype, points.device
+    p = points.shape[1]
+    k = params.k_neighbors
+    max_radius = (params.neighborhood_size
+                  + params.neighborhood_step * (params.num_radius_steps - 1))
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    pair_valid = mask[:, :, None] & mask[:, None, :]
+    d2 = torch.where(pair_valid, _pair_d2(points), inf)
+    d2 = torch.where(torch.eye(p, dtype=torch.bool, device=dev), inf, d2)
+    # Ascending distance, ties to the lower index, as lax.top_k of -d2.
+    nbr_d2, nbr_idx = torch.sort(d2, dim=-1, stable=True)
+    nbr_d2, nbr_idx = nbr_d2[..., :k], nbr_idx[..., :k]           # [B, P, K]
+    nbr_ok = (nbr_d2 <= max_radius ** 2) \
+        | (torch.arange(k, device=dev) == 0)
+    b = torch.arange(points.shape[0], device=dev)[:, None, None]
+    nbr_pts = points[b, nbr_idx]                                  # [B, P, K, 2]
+
+    ii, jj = np.triu_indices(k, 1)
+    limit = max(int(1.0 / (2.0 * params.mean_distance ** 2)), 1)
+    ii = torch.as_tensor(ii[:limit], device=dev)
+    jj = torch.as_tensor(jj[:limit], device=dev)
+    seg = nbr_pts[:, :, jj] - nbr_pts[:, :, ii]                   # [B, P, S, 2]
+    seg_len2 = torch.sum(seg * seg, dim=-1)
+    vote_ok = nbr_ok[:, :, ii] & nbr_ok[:, :, jj] & (seg_len2 > 1e-12)
+    inv_len = torch.rsqrt(torch.clamp(seg_len2, min=1e-12))
+    angle = torch.acos(torch.clamp(-seg[..., 1] * inv_len, -1.0, 1.0))
+    # Divided by a device scalar: a Python float divisor becomes a multiply
+    # by its reciprocal on CUDA, and an angle on a bin edge could change bin.
+    step = torch.tensor(2.0 * np.pi / params.bin_number, dtype=dtype,
+                        device=dev)
+    bins = torch.round(angle / step).to(torch.int64) % params.bin_number
+    votes = torch.zeros(points.shape[:2] + (params.bin_number,), dtype=dtype,
+                        device=dev)
+    votes.scatter_add_(2, bins, vote_ok.to(dtype))                # [B, P, bins]
+    # Integer counts: the first largest bin, as jnp.argmax picks it.
+    best = torch.argmax(votes, dim=-1)
+    in_best = (bins == best[..., None]) & vote_ok
+    wsum = torch.sum(torch.where(in_best, angle, torch.zeros_like(angle)),
+                     dim=-1)
+    avg = wsum / torch.clamp(torch.sum(in_best, dim=-1), min=1).to(dtype)
+    normal = torch.stack([torch.cos(avg), torch.sin(avg)], dim=-1)
+    return torch.where(mask[..., None], normal, torch.zeros_like(normal))
+
+
 def _scan_smoothness(points, mask, params: FeatureParams):
     """Smoothness scores [B, P] and validity [B, P] for a chunk of scans."""
     p = points.shape[1]
@@ -250,13 +310,14 @@ def extract_features(points, mask, params: FeatureParams = FeatureParams(),
 
 def compute_normals(points, mask, params: NormalParams = NormalParams(),
                     chunk: int = 16):
-    """Normals for all scans: points [N, P, 2], mask [N, P] -> [N, P, 2]."""
-    if params.method != "pca":
-        raise NotImplementedError(
-            f"normal method {params.method!r} is not ported yet (ROADMAP.md "
-            "section 1: only the PCA estimator runs in the port)")
-    return torch.cat([_scan_normals(points[i:i + chunk], mask[i:i + chunk],
-                                    params)
+    """Normals for all scans: points [N, P, 2], mask [N, P] -> [N, P, 2].
+    params.method picks the PCA estimator ("pca") or the Hough accumulator
+    ("hough")."""
+    if params.method not in ("pca", "hough"):
+        raise ValueError(f"normal method must be pca or hough, got "
+                         f"{params.method!r}")
+    fn = _scan_normals_hough if params.method == "hough" else _scan_normals
+    return torch.cat([fn(points[i:i + chunk], mask[i:i + chunk], params)
                       for i in range(0, points.shape[0], chunk)])
 
 

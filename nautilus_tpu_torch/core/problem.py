@@ -160,14 +160,17 @@ def pad_clouds(clouds, pad_multiple: int = 128):
 
 
 def resolve_solver_dtype(name) -> torch.dtype:
-    """Map the ``solver_dtype`` config key to a torch dtype (float32 only)."""
+    """Map the ``solver_dtype`` config key to a torch dtype.
+
+    float32 is the default.  float64 runs the solver state (poses, factors,
+    normal equations, LM) in doubles; preprocessing and scan matching stay
+    float32, and the problem's clouds, normals and features are cast once
+    by ``build_problem``."""
     name = str(name).lower()
     if name in ("float32", "f32"):
         return torch.float32
     if name in ("float64", "f64", "double"):
-        raise NotImplementedError(
-            "solver_dtype=float64 is not ported yet (ROADMAP.md section 1, "
-            "item 'float64')")
+        return torch.float64
     raise ValueError(f"solver_dtype must be float32 or float64, got {name!r}")
 
 
@@ -201,13 +204,15 @@ _INDEX_FIELDS = ("planar_idx", "edge_idx", "odom_i", "odom_j")
 _MASK_FIELDS = ("points_mask", "planar_mask", "edge_mask")
 
 
-def problem_from_numpy(arrays: dict, device) -> SLAMProblem:
+def problem_from_numpy(arrays: dict, device,
+                       dtype=torch.float32) -> SLAMProblem:
     """SLAMProblem from numpy arrays keyed by field name — e.g. the fields of
     a JAX ``SLAMProblem`` taken with ``np.asarray`` — so a computation can
-    start from exactly the state another engine holds."""
+    start from exactly the state another engine holds.  ``dtype`` is the
+    solver dtype of the float fields."""
     fields = {}
     for name in SLAMProblem._fields:
-        dtype = (torch.int64 if name in _INDEX_FIELDS
-                 else torch.bool if name in _MASK_FIELDS else torch.float32)
-        fields[name] = _tensor(arrays[name], dtype, device)
+        kind = (torch.int64 if name in _INDEX_FIELDS
+                else torch.bool if name in _MASK_FIELDS else dtype)
+        fields[name] = _tensor(arrays[name], kind, device)
     return SLAMProblem(**fields)

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from nautilus_tpu_torch.core.problem import (RawNodes, default_device,
                                              pad_clouds)
@@ -222,13 +223,14 @@ def write_synthetic_bag(path, num_nodes: int = 30, world_kind: str = "office",
     write_bag(path, messages)
 
 
-def _state_from_raw(raw: RawNodes, device):
+def _state_from_raw(raw: RawNodes, device, dtype=torch.float32):
     from nautilus_tpu_torch.core.preprocess import preprocess
     from nautilus_tpu_torch.core.problem import SLAMState, build_problem
 
     normals, pidx, pmask, eidx, emask, _ = preprocess(
         raw.points, raw.points_mask, device)
-    problem = build_problem(raw, normals, pidx, pmask, eidx, emask, device)
+    problem = build_problem(raw, normals, pidx, pmask, eidx, emask, device,
+                            dtype)
     return SLAMState.from_problem(problem, timestamps=raw.timestamps)
 
 
@@ -282,11 +284,12 @@ def reverse_traversal_problem(seed: int = 3, device=None):
 
 
 def make_problem(num_nodes: int = 30, world_kind: str = "office",
-                 seed: int = 0, device=None, **kw):
+                 seed: int = 0, device=None, dtype=None, **kw):
     """Convenience: synthesize + preprocess + build the problem/state on
     ``device`` (None means the CUDA card, and raises without one; pass
-    "cpu" for the CPU).  Returns (state, gt)."""
+    "cpu" for the CPU).  ``dtype`` is the solver dtype (None: float32);
+    preprocessing runs in float32 either way.  Returns (state, gt)."""
     device = default_device(device)
     raw, gt = synthesize(num_nodes=num_nodes, world_kind=world_kind,
                          seed=seed, **kw)
-    return _state_from_raw(raw, device), gt
+    return _state_from_raw(raw, device, dtype or torch.float32), gt

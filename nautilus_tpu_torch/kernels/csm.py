@@ -122,7 +122,9 @@ def _smear_log_table(raster, res: float, sigma: float):
 def build_tables(cloud_b, mask_b, params: CSMParams = CSMParams()):
     """Per-target matcher state for clouds [C, P, 2]: the coarse log table
     [C, T, T] and the cloud with masked points parked at 1e3 (their
-    Gaussian contribution underflows to exactly 0)."""
+    Gaussian contribution underflows to exactly 0).  A float64 problem's
+    clouds are cast: scan matching runs in float32."""
+    cloud_b = cloud_b.float()
     res = params.low_res
     table_lo = _smear_log_table(
         _raster(cloud_b, mask_b, params.table_halfwidth, res,
@@ -335,6 +337,7 @@ def csm_match_to_tables(tables, cloud_a, mask_a,
     the +-rotation_restriction search window (the solution-implied relative
     heading).  Returns (score 0-dim, [tx, ty, theta])."""
     table_lo, tgt_points = tables
+    cloud_a = cloud_a.float()
     centers = torch.full((1,), float(rotation_center), dtype=torch.float32,
                          device=cloud_a.device)
     s, tr = _match_to_tables_batch(table_lo[None], tgt_points[None],
@@ -365,6 +368,8 @@ def csm_match_batch(clouds_a, masks_a, clouds_b, masks_b,
     Returns (scores [Q], transforms [Q, 3]) tensors."""
     q = clouds_a.shape[0]
     dev = clouds_a.device
+    # Scan matching runs in float32 whatever the solver's dtype.
+    clouds_a = clouds_a.float()
     if rotation_centers is None:
         rotation_centers = torch.zeros(q, dtype=torch.float32, device=dev)
     scores, transforms = [], []
@@ -409,6 +414,9 @@ def csm_match_pairs(points, masks, src_idx, tgt_idx,
     if rotation_centers is None:
         rotation_centers = np.zeros(q, np.float32)
     dev = points.device
+    # Scan matching runs in float32 whatever the solver's dtype: a float64
+    # problem's clouds hold float32 values, so the cast is exact.
+    points = points.float()
     centers = torch.as_tensor(np.asarray(rotation_centers, np.float32),
                               device=dev)
     ss = torch.as_tensor(src_idx, device=dev)

@@ -4,20 +4,25 @@
 1. candidate filter (scatter score + spacing), optionally the
    local-uncertainty criterion (keyframe_local_uncertainty_filtering);
 2. range prefilter (lc_base_max_range + lc_max_range_scaling * |s - t|)
-   and chi-square uncertainty gating over candidate pairs;
+   and chi-square uncertainty gating over candidate pairs; on request
+   (``use_descriptor_gate``) a scan-descriptor gate after it, scored by the
+   learned embedding or the hand descriptor (``descriptor_gate``);
 3. correlative scan matching per gated pair, each pair's target widened to
    its +-lc_match_window_size trajectory neighbours (best member wins),
    accepted at csm_score_threshold;
 4. each accepted match becomes a weighted relative-pose factor;
 5. re-solve at the max window.
 
-``apply=False`` stops after scoring (diagnostic only).
+``apply=False`` stops after scoring (diagnostic only).  When the config key
+``lc_debug_output_dir`` names an existing directory, every scored pair is
+drawn into it (raw and aligned overlay).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
@@ -37,6 +42,8 @@ class AutoLCReport:
     applied: bool = False
     # Wall seconds per stage: candidates / gate / csm / resolve.
     stage_walls: dict = dataclasses.field(default_factory=dict)
+    # The re-solve's SolveStats when closures were applied, else None.
+    resolve_stats: object = None
 
 
 def _csm_params_from_config(cfg) -> CSMParams:
@@ -66,6 +73,129 @@ def relative_pose_factor(state, s: int, t: int, transform: np.ndarray,
     trans = implied[j][:2] - implied[i][:2]
     rot = implied[j][2] - implied[i][2]
     return (i, j, trans, float(rot), wt, wr)
+
+
+def _dump_pair_image(state, s: int, t: int, transform: np.ndarray,
+                     score: float, debug_dir: str) -> None:
+    """Debug picture of a candidate pair: the two raw scans, and scan s
+    moved onto scan t by the match, as lc_<s>_<t>.png in debug_dir."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    out = Path(debug_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    idx = [s, t]
+    pts = state.problem.points[idx].cpu().numpy()
+    msk = state.problem.points_mask[idx].cpu().numpy()
+    pa, pb = pts[0][msk[0]], pts[1][msk[1]]
+    c, sn = np.cos(transform[2]), np.sin(transform[2])
+    pa_aligned = pa @ np.array([[c, sn], [-sn, c]]) + transform[:2]
+    fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(10, 5))
+    ax1.plot(pa[:, 0], pa[:, 1], ".", ms=1, label=f"scan {s}")
+    ax1.plot(pb[:, 0], pb[:, 1], ".", ms=1, label=f"scan {t}")
+    ax1.set_title("raw")
+    ax1.legend()
+    ax2.plot(pa_aligned[:, 0], pa_aligned[:, 1], ".", ms=1)
+    ax2.plot(pb[:, 0], pb[:, 1], ".", ms=1)
+    ax2.set_title(f"aligned (score {score:.2f})")
+    for ax in (ax1, ax2):
+        ax.set_aspect("equal")
+    fig.savefig(out / f"lc_{s:04d}_{t:04d}.png", dpi=100,
+                bbox_inches="tight")
+    plt.close(fig)
+
+
+def scorer_self_check(state, score_fn, n_probe: int = 12,
+                      far_frac: float = 0.6):
+    """AUC of ``score_fn`` on pairs whose label this map already knows.
+
+    Near pairs: trajectory-adjacent nodes.  Far pairs: nodes whose solution
+    distance exceeds ``far_frac`` of the map extent, almost surely far
+    whatever the drift.  Returns P(score(near) > score(far)) over up to
+    n_probe pairs per class, or None when the map is too small or compact
+    to build both classes.
+    """
+    n = state.num_nodes
+    if n < 6:
+        return None
+    sol = np.asarray(state.solution[:n, :2])
+    extent = float(np.linalg.norm(sol.max(0) - sol.min(0)))
+    if extent <= 1e-6:
+        return None
+    rng = np.random.default_rng(0)
+    # Far pairs from one distance row per source node, not an N x N matrix.
+    # Sources start at the bounding box's extremes: the wider axis's extreme
+    # pair is at least extent / sqrt(2) apart, so for far_frac <= 0.7 a far
+    # pair is found whenever one exists.
+    span = sol.max(0) - sol.min(0)
+    a = int(span[1] > span[0])
+    seeds = [int(np.argmin(sol[:, a])), int(np.argmax(sol[:, a])),
+             int(np.argmin(sol[:, 1 - a])), int(np.argmax(sol[:, 1 - a]))]
+    seeds += [int(s) for s in rng.integers(0, n, 32)]
+    far_pairs, seen_far = [], set()
+    node_idx = np.arange(n)
+    for s in seeds:
+        if len(far_pairs) >= n_probe:
+            break
+        d = np.linalg.norm(sol - sol[s], axis=1)
+        js = np.nonzero((d >= far_frac * extent)
+                        & (np.abs(node_idx - s) >= 2))[0]
+        for j in js[np.argsort(-d[js])[:4]]:
+            key = (min(s, int(j)), max(s, int(j)))
+            if key not in seen_far:
+                seen_far.add(key)
+                far_pairs.append((s, int(j)))
+    far_pairs = far_pairs[:n_probe]
+    if not far_pairs:
+        return None
+    near_i = rng.choice(n - 1, size=min(n_probe, n - 1), replace=False)
+    near = np.array([float(score_fn(int(i), int(i + 1))) for i in near_i])
+    far = np.array([float(score_fn(i, j)) for i, j in far_pairs])
+    return float(np.mean(near[:, None] > far[None, :]))
+
+
+def descriptor_gate(state, pairs, threshold: float,
+                    use_learned_embedding: bool = None):
+    """The pairs whose scan-descriptor similarity reaches ``threshold``
+    (config lc_match_threshold).
+
+    use_learned_embedding (config lc_use_learned_embedding) True or False
+    forces the scorer.  On None, with the weights file present, both
+    scorers run scorer_self_check on this map, and the learned embedding
+    scores only when it separates near from far pairs at least as well as
+    the hand descriptor.  The choice and both AUCs are kept on the state
+    (``_descriptor_gate_choice``) for later calls."""
+    from nautilus_tpu_torch.loop_closure import embedding
+    from nautilus_tpu_torch.loop_closure.learned import match_score
+    pts = state.problem.points
+    msk = state.problem.points_mask
+    params = None
+    if use_learned_embedding is None or use_learned_embedding:
+        params = embedding.load_params(device=pts.device, dtype=pts.dtype)
+        if params is None and use_learned_embedding:
+            raise FileNotFoundError(
+                f"lc_use_learned_embedding=true but no weights at "
+                f"{embedding.default_weights_path()}")
+    if not pairs:
+        return []
+    emb_score = (lambda s, t: embedding.embedding_match_score(
+        params, pts[s], msk[s], pts[t], msk[t])) if params else None
+    hand_score = lambda s, t: match_score(pts[s], msk[s], pts[t], msk[t])
+    scorer = "emb" if params else "hand"
+    if params is not None and use_learned_embedding is None:
+        # The check depends only on the map's scans: run it once per state.
+        kept = getattr(state, "_descriptor_gate_choice", None)
+        if kept is None:
+            auc_emb = scorer_self_check(state, emb_score)
+            auc_hand = scorer_self_check(state, hand_score)
+            kept = {"scorer": ("hand" if auc_emb is not None
+                               and auc_hand is not None
+                               and auc_emb < auc_hand else "emb"),
+                    "auc_emb": auc_emb, "auc_hand": auc_hand}
+            state._descriptor_gate_choice = kept
+        scorer = kept["scorer"]
+    score = hand_score if scorer == "hand" else emb_score
+    return [(s, t) for s, t in pairs if float(score(s, t)) >= threshold]
 
 
 def match_gated_pairs(state, gated_pairs, params: CSMParams, match_w: int,
@@ -109,10 +239,6 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
                   csm_params: CSMParams = None,
                   use_descriptor_gate: bool = False) -> AutoLCReport:
     """Full auto-LC pass over the solver's state."""
-    if use_descriptor_gate:
-        raise NotImplementedError(
-            "the descriptor gate is not ported yet (ROADMAP.md section 1, "
-            "'embedding and descriptor gate')")
     state = solver.state
     cfg = solver.config
     report = AutoLCReport(candidates=[], gated_pairs=[], csm_results=[],
@@ -155,6 +281,14 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     if verbose:
         print(f"Auto-LC: {len(report.gated_pairs)} pairs pass the "
               f"chi-square gate.")
+    if use_descriptor_gate and report.gated_pairs:
+        report.gated_pairs = descriptor_gate(
+            state, report.gated_pairs,
+            float(cfg.get("lc_match_threshold", 0.5)),
+            use_learned_embedding=cfg.get("lc_use_learned_embedding", None))
+        if verbose:
+            print(f"Auto-LC: {len(report.gated_pairs)} pairs pass the "
+                  f"descriptor gate.")
     if not report.gated_pairs:
         return report
 
@@ -165,9 +299,16 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     threshold = float(cfg.csm_score_threshold)
     wt = float(cfg.lc_translation_weight)
     wr = float(cfg.lc_rotation_weight)
+    # Pair pictures only when the user made the directory: the key always
+    # has a default value.
+    debug_dir = cfg.get("lc_debug_output_dir", "")
+    debug_dir = debug_dir if debug_dir and Path(debug_dir).is_dir() else ""
     for k, (s, _) in enumerate(report.gated_pairs):
         t = int(best_tt[k])
         report.csm_results.append((s, t, float(scores[k]), transforms[k]))
+        if debug_dir:
+            _dump_pair_image(state, s, t, transforms[k], float(scores[k]),
+                             debug_dir)
         if scores[k] >= threshold:
             report.accepted.append((s, t))
             if apply:
@@ -179,7 +320,7 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
               f"threshold ({threshold}).")
     if apply and report.accepted:
         t0 = time.perf_counter()
-        solver.solve_max_window()
+        report.resolve_stats = solver.solve_max_window()
         report.stage_walls["resolve"] = time.perf_counter() - t0
         report.applied = True
     return report

@@ -43,8 +43,9 @@ def associate(problem: SLAMProblem, x, pair_src, pair_tgt, window: int,
               normal_gate_cos: float = 0.9396926) -> Correspondences:
     """Match every pair's features at the current solution x [N, 3].
 
-    feature: "planar" | "edge".  Ties in the nearest-target search go to
-    the first index, as in the JAX package.
+    feature: "planar" | "edge" | "all" (the whole clouds; the working set
+    is [Q, P, P], so call it through associate_chunked).  Ties in the
+    nearest-target search go to the first index, as in the JAX package.
     """
     if feature == "planar":
         pts, msk = problem.planar_points, problem.planar_mask
@@ -53,9 +54,7 @@ def associate(problem: SLAMProblem, x, pair_src, pair_tgt, window: int,
         pts, msk = problem.edge_points, problem.edge_mask
         nrm = problem.edge_normals
     elif feature == "all":
-        raise NotImplementedError(
-            "optimization_type 'all' (associate_chunked) is not ported yet "
-            "(ROADMAP.md section 1, 'associate_chunked')")
+        pts, msk, nrm = problem.points, problem.points_mask, problem.normals
     else:
         raise ValueError(feature)
 
@@ -82,3 +81,21 @@ def associate(problem: SLAMProblem, x, pair_src, pair_tgt, window: int,
         src_pts=src_pts, tgt_pts=torch.gather(tgt_pts, 1, gather),
         src_nrm=src_nrm, tgt_nrm=torch.gather(tgt_nrm, 1, gather),
         mask=valid)
+
+
+def associate_chunked(problem: SLAMProblem, x, pairs: PairList, window: int,
+                      outlier_threshold: float, feature: str = "all",
+                      use_normal_gate: bool = False,
+                      chunk: int = 64) -> Correspondences:
+    """associate over the whole pair list, ``chunk`` pairs at a time, for
+    full clouds (optimization type ALL): the [chunk, P, P] distance matrix
+    bounds the working set (151 MB in float32 at P=768, chunk 64).  The
+    last chunk is simply shorter, so no padded pair exists."""
+    dev = x.device
+    src = torch.as_tensor(pairs.src, device=dev)
+    tgt = torch.as_tensor(pairs.tgt, device=dev)
+    parts = [associate(problem, x, src[c:c + chunk], tgt[c:c + chunk], window,
+                       outlier_threshold, feature=feature,
+                       use_normal_gate=use_normal_gate)
+             for c in range(0, src.shape[0], chunk)]
+    return Correspondences(*[torch.cat(cols) for cols in zip(*parts)])

@@ -1,5 +1,5 @@
-"""Residual factors + Gauss-Newton normal equations in block-band form
-(port of nautilus_tpu/solve/factors.py, band path).
+"""Residual factors + Gauss-Newton normal equations, in block-band and in
+dense form (port of nautilus_tpu/solve/factors.py).
 
 Residuals (same semantics as the JAX package):
 - odometry: world-frame translation delta plus wrapped rotation delta,
@@ -22,12 +22,21 @@ couple nodes to line poses through the dense border C, E, gl.
 ``analytic="moments"`` (the solver's default) reduces J^T J and J^T r of
 the correspondence factors to per-point scalar sums without forming J;
 ``analytic=True`` forms the closed-form J and contracts it.
+
+``assemble_normal_equations`` builds the same system as a dense [3M, 3M] H
+for graphs the band cannot hold (odometry outside the window, more
+long-range closures than the Woodbury cap): every factor batch is
+linearized to (r, J, dof) and its 6x6 blocks scattered into H.  With a
+layout the correspondence blocks take the band accumulation and one
+band-to-dense expansion instead.  The same (r, J, dof) terms drive the
+matrix-free products of solve/cg.py.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from nautilus_tpu_torch.core import geometry as geo
@@ -43,6 +52,9 @@ class OdomFactors(NamedTuple):
     mask: torch.Tensor     # [F] bool
     wt: torch.Tensor       # [F] translation weight
     wr: torch.Tensor       # [F] rotation weight
+    # Largest |i - j|, kept on the host so that the band assembly can refuse
+    # an out-of-band factor without reading the device.
+    span: int = 0
 
     @property
     def count(self):
@@ -52,6 +64,9 @@ class OdomFactors(NamedTuple):
 def make_odom_factors(i, j, trans, rot, tw, rw, device,
                       dtype=torch.float32) -> OdomFactors:
     """Factors from host arrays; tw/rw are scalars or per-factor arrays."""
+    host = [np.asarray(v.cpu() if torch.is_tensor(v) else v,
+                       np.int64).reshape(-1) for v in (i, j)]
+    span = int(np.abs(host[0] - host[1]).max()) if host[0].size else 0
     i = torch.as_tensor(i, dtype=torch.int64, device=device).reshape(-1)
     f = i.shape[0]
     full = lambda v: torch.as_tensor(v, dtype=dtype, device=device).expand(f)
@@ -60,7 +75,7 @@ def make_odom_factors(i, j, trans, rot, tw, rw, device,
         trans=torch.as_tensor(trans, dtype=dtype, device=device).reshape(f, 2),
         rot=torch.as_tensor(rot, dtype=dtype, device=device).reshape(f),
         mask=torch.ones((f,), dtype=torch.bool, device=device),
-        wt=full(tw).clone(), wr=full(rw).clone())
+        wt=full(tw).clone(), wr=full(rw).clone(), span=span)
 
 
 class Correspondences(NamedTuple):
@@ -308,6 +323,60 @@ def linearize_two_pose_jacfwd(x, idx_a, idx_b, item_fn, data):
     return r, J
 
 
+_ANALYTIC = {
+    odom_residual: _linearize_odom,
+    point_residual: _linearize_point,
+    normal_residual: _linearize_normal,
+}
+
+
+def linearize_two_pose(x, idx_a, idx_b, item_fn, data):
+    """(r [Q, m], J [Q, m, 6], dof [Q, 6]) of one two-pose factor batch, or
+    None when it is empty: the closed form for odometry, point and normal
+    residuals, forward-mode autodiff for the rest (HITL)."""
+    if idx_a.shape[0] == 0:
+        return None
+    closed_form = _ANALYTIC.get(item_fn)
+    if closed_form is not None:
+        r, J = closed_form(x[idx_a], x[idx_b], *data)
+    else:
+        r, J = linearize_two_pose_jacfwd(x, idx_a, idx_b, item_fn, data)
+    return r, J, _dof_cols(idx_a, idx_b)
+
+
+def odom_factor_spec(graph: FactorGraph):
+    """(idx_a, idx_b, residual_fn, data) of the odometry batch."""
+    od = graph.odom
+    return (od.i, od.j, odom_residual,
+            (od.trans, od.rot, od.mask, od.wt, od.wr))
+
+
+def corr_factor_specs(graph: FactorGraph):
+    """Factor specs of the planar and edge correspondence batches."""
+    pl, ed = graph.planar, graph.edge
+    return [
+        (pl.src, pl.tgt, normal_residual,
+         (pl.src_pts, pl.tgt_pts, pl.src_nrm, pl.tgt_nrm, pl.mask)),
+        (ed.src, ed.tgt, point_residual, (ed.src_pts, ed.tgt_pts, ed.mask)),
+    ]
+
+
+def graph_factor_specs(graph: FactorGraph):
+    """Every factor type as (idx_a, idx_b, residual_fn, data): the one
+    enumeration the dense scatter and the matrix-free products build
+    from."""
+    hitl = hitl_factor_spec(graph)
+    return [odom_factor_spec(graph)] + corr_factor_specs(graph) \
+        + ([] if hitl is None else [hitl])
+
+
+def _graph_factor_terms(x, graph: FactorGraph):
+    """(r, J, dof) of every non-empty factor batch."""
+    terms = [linearize_two_pose(x, *spec)
+             for spec in graph_factor_specs(graph)]
+    return [t for t in terms if t is not None]
+
+
 def _jtj(r, J):
     """(Hq [Q, 6, 6], gq [Q, 6]) = (J^T J, J^T r)."""
     return (torch.einsum("qmi,qmj->qij", J, J),
@@ -470,7 +539,8 @@ def _accumulate_banded(x, graph: FactorGraph, layout: BandLayout,
 def _scatter_band_factor(lv, gd, cost, x, od: OdomFactors):
     """Scatter one odometry-style factor batch into the band levels
     lv [w+1, N, 3, 3] (level 0 = diagonal, level d = block (i, i-d) at row
-    i) and the gradient gd.  Requires |i - j| <= w (the solver checks)."""
+    i) and the gradient gd.  Requires |i - j| <= w (assemble_banded_system
+    checks)."""
     if od.count == 0:
         return lv, gd, cost
     r, J = _linearize_odom(x[od.i], x[od.j], od.trans, od.rot, od.mask,
@@ -545,8 +615,17 @@ def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
     x is [N + L, 3] with L HITL line poses after the N nodes.  Every
     odometry / in-band loop-closure factor must satisfy |i - j| <= layout.w;
     long-range loop closures go in through ``lr`` as Woodbury columns; the
-    line poses enter as the border C, E, gl.
+    line poses enter as the border C, E, gl.  A graph whose odometry batch
+    reaches past the band (Solver.build_graph without exclude_long_range on
+    a map with long-range closures) raises ValueError: its block has no
+    slot in the band.
     """
+    if graph.odom.span > layout.w:
+        raise ValueError(
+            f"band assembly of a factor with |i - j| = {graph.odom.span} > "
+            f"{layout.w}: build the graph with exclude_long_range=True and "
+            "pass the long-range closures as lr, or assemble the dense "
+            "system")
     n = layout.n
     L = x.shape[0] - n
     diag, band, gd, cost = _accumulate_banded(x, graph, layout, analytic)
@@ -564,8 +643,50 @@ def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
                         gl=gl), cost
 
 
+def _accumulate_two_pose(H, g, term):
+    """Scatter-add one linearized factor batch into dense H [3M, 3M] and
+    g [3M], in place.  The sum order of colliding blocks is the device's,
+    so H repeats only to rounding on a card."""
+    r, J, dof = term
+    Hq, gq = _jtj(r, J)
+    H.index_put_((dof[:, :, None], dof[:, None, :]), Hq, accumulate=True)
+    g.index_put_((dof,), gq, accumulate=True)
+
+
+def assemble_normal_equations(x, graph: FactorGraph,
+                              layout: BandLayout = None, analytic=True):
+    """Dense Gauss-Newton normal equations: (H [3M, 3M], g [3M], cost) for
+    x [M, 3], any factor topology.
+
+    With ``layout`` (the delta-major pair order of correspond.make_pairs)
+    the planar/edge blocks, the bulk of the factors, accumulate into the
+    block band by slice adds and expand to dense H in one reshape, and
+    only odometry and HITL factors scatter; without one every batch goes
+    through the scatter.  ``analytic`` picks the correspondence blocks'
+    form on the layout path, as in assemble_banded_system."""
+    n_dof = 3 * x.shape[0]
+    H = torch.zeros((n_dof, n_dof), dtype=x.dtype, device=x.device)
+    g = torch.zeros((n_dof,), dtype=x.dtype, device=x.device)
+    cost = torch.zeros((), dtype=x.dtype, device=x.device)
+    if layout is None or layout.w < 1:
+        specs = graph_factor_specs(graph)
+    else:
+        hitl = hitl_factor_spec(graph)
+        specs = [odom_factor_spec(graph)] + ([] if hitl is None else [hitl])
+        diag, band, gd, cost = _accumulate_banded(x, graph, layout, analytic)
+        n3 = 3 * layout.n
+        H[:n3, :n3] += _band_to_dense(diag, band, layout)
+        g[:n3] += gd.reshape(n3)
+    for spec in specs:
+        term = linearize_two_pose(x, *spec)
+        if term is not None:
+            _accumulate_two_pose(H, g, term)
+            cost = cost + 0.5 * torch.sum(term[0] * term[0])
+    return H, g, cost
+
+
 def _band_to_dense(diag, band, layout: BandLayout):
-    """Expand the block band to a dense symmetric [3n, 3n] H (tests)."""
+    """Expand the block band to a dense symmetric [3n, 3n] H."""
     n, w = layout.n, layout.w
     S = torch.stack([band[d] for d in reversed(range(w))] + [0.5 * diag],
                     dim=1)                                   # [n, w+1, 3, 3]

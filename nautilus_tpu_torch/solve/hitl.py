@@ -103,10 +103,12 @@ def select_poses(state: SLAMState, msg: HitlSlamInputMsg,
         line_pose_index=len(state.line_poses))
 
 
-def build_hitl_factors(state: SLAMState, dtype=torch.float32) -> HitlFactors:
-    """All constraints as one HitlFactors batch on the problem's device:
-    one row per selected pose, padded to the longest row's point count."""
+def build_hitl_factors(state: SLAMState, dtype=None) -> HitlFactors:
+    """All constraints as one HitlFactors batch on the problem's device, in
+    ``dtype`` (None: the dtype of the problem's clouds): one row per
+    selected pose, padded to the longest row's point count."""
     dev = state.problem.device
+    dtype = dtype or state.problem.points.dtype
     rows = []
     for c in state.hitl_constraints:
         line_dof = state.num_nodes + c.line_pose_index

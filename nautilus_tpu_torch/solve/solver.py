@@ -1,20 +1,26 @@
-"""High-level solver: the growing-window sweep over band LM solves (port of
-nautilus_tpu/solve/solver.py, band path).
+"""High-level solver: the growing-window sweep over LM solves (port of
+nautilus_tpu/solve/solver.py).
 
 - ``solve_slam``: for each window size from lidar_constraint_amount_min to
-  _max, associate planar and edge features at the current solution and run
-  LM on the block-band system (the JAX package's fused sweep, as a Python
-  loop over windows).
+  _max, associate features at the current solution and run LM (the JAX
+  package's sweep, as a Python loop over windows).  Optimization type
+  "feature" matches planar and edge features; "all" matches whole clouds.
 - ``solve_max_window``: one solve at the max window, used after loop
   closures are applied.
 
 The dof vector is [solution; line_poses]: N node poses, then one free line
 pose per HITL constraint (L of them, no padding).  Pose 0 is the gauge.
+Solver state has the dtype of the problem's clouds (float32, or float64
+for a solver_dtype=float64 problem).
 
-Only band-eligible graphs are ported: every odometry factor within the
-window band, long-range loop closures as Woodbury columns (up to
-lr_factor_cap).  Anything else raises NotImplementedError naming the
-ROADMAP item.
+Three linear solvers, resolved per solve because loop closures change the
+factor set:
+- "band": block-band Cholesky, when every odometry factor lies within the
+  window band and at most lr_factor_cap long-range closures ride along as
+  Woodbury columns;
+- "dense": dense Cholesky on H [3M, 3M], any topology;
+- "cg": matrix-free preconditioned CG, preconditioned by the band subset
+  when the odometry is within the band.
 """
 
 from __future__ import annotations
@@ -28,10 +34,11 @@ import torch
 
 from nautilus_tpu_torch.core.problem import SLAMState
 from nautilus_tpu_torch.solve import correspond
-from nautilus_tpu_torch.solve.factors import (BandLayout, FactorGraph,
-                                              HitlFactors, OdomFactors,
-                                              make_odom_factors)
-from nautilus_tpu_torch.solve.lm import LMParams, LMResult, lm_solve_banded
+from nautilus_tpu_torch.solve.factors import (BandLayout, Correspondences,
+                                              FactorGraph, HitlFactors,
+                                              OdomFactors, make_odom_factors)
+from nautilus_tpu_torch.solve.lm import (LMParams, LMResult, lm_solve,
+                                         lm_solve_banded)
 
 
 @dataclasses.dataclass
@@ -41,6 +48,7 @@ class WindowStats:
     final_cost: float
     iterations: int
     wall_s: float
+    inner_iterations: int = 0   # CG iterations (linear solver 'cg' only)
 
 
 @dataclasses.dataclass
@@ -86,11 +94,31 @@ class Solver:
     # this many the JAX package falls back to the dense path.
     LR_FACTOR_CAP = 341
 
+    # 'auto' takes dense H up to this many nodes and CG beyond.  The JAX
+    # package's figure, from three live (3N)^2 float32 copies on a 16 GB
+    # TPU; kept for parity, not measured on the H100.
+    DENSE_MAX_NODES = 8000
+
     def __init__(self, state: SLAMState, config,
                  lm_params: Optional[LMParams] = None,
-                 linear_solver: str = "auto"):
-        """linear_solver: 'band' or 'auto' (= band when eligible).  The
-        dense and CG solvers are not ported."""
+                 linear_solver: str = "auto",
+                 use_normal_gate: bool = False,
+                 assembly: Optional[str] = None):
+        """linear_solver: 'band', 'dense', 'cg', or 'auto' (band when
+        eligible, else dense up to DENSE_MAX_NODES nodes, else cg).
+
+        use_normal_gate: match a feature only to targets whose normal lies
+        within 20 degrees of its own.
+
+        assembly: 'moments' or None for the moment-form band assembly (J^T J
+        and J^T r from per-point scalar sums, J never formed), 'jacobian'
+        for the closed-form J and its contraction."""
+        if linear_solver not in ("auto", "band", "dense", "cg"):
+            raise ValueError(f"linear_solver must be auto, band, dense or cg, "
+                             f"got {linear_solver!r}")
+        if assembly not in (None, "moments", "jacobian"):
+            raise ValueError(f"assembly must be moments or jacobian, got "
+                             f"{assembly!r}")
         self.state = state
         self.config = config
         self.device = state.problem.device
@@ -99,6 +127,10 @@ class Solver:
                 config.get("accuracy_change_stop_threshold", 0.0)),
             step_dof=3 * state.num_nodes)
         self.linear_solver = linear_solver
+        # The linear solver the last solve resolved to.
+        self.last_solver: Optional[str] = None
+        self.use_normal_gate = use_normal_gate
+        self.assembly = assembly
         n = state.num_nodes
         w_max = config.get_int("lidar_constraint_amount_max")
         self.pairs = correspond.make_pairs(n, w_max)
@@ -132,28 +164,34 @@ class Solver:
         return len(self._split_lc()[1]) <= cap
 
     def _resolve_solver(self) -> str:
-        if self.linear_solver not in ("auto", "band"):
-            raise NotImplementedError(
-                f"linear_solver={self.linear_solver!r} is not ported yet "
-                "(ROADMAP.md section 1, 'dense fallback' / 'CG')")
-        if not self._band_eligible():
-            if self.linear_solver == "band":
+        """This solve's linear solver ('auto' depends on the current factor
+        set, which loop closures change)."""
+        if self.linear_solver != "auto":
+            if self.linear_solver == "band" and not self._band_eligible():
                 # An out-of-band block has no slot in the band: refuse
                 # rather than drop the coupling.
                 raise ValueError(
                     "linear_solver='band' requires >= 2 nodes, every "
                     "odometry factor within |i - j| <= window max, and at "
-                    "most LR_FACTOR_CAP long-range loop-closure factors")
-            raise NotImplementedError(
-                "this graph is not band-eligible and needs the dense or CG "
-                "solver, which is not ported yet (ROADMAP.md section 1, "
-                "'dense fallback')")
-        return "band"
+                    "most LR_FACTOR_CAP long-range loop-closure factors: "
+                    "use 'dense' or 'auto'")
+            return self.linear_solver
+        if self._band_eligible():
+            return "band"
+        return "dense" if self.state.num_nodes <= self.DENSE_MAX_NODES \
+            else "cg"
+
+    def _dtype(self) -> torch.dtype:
+        return self.state.problem.points.dtype
+
+    def _analytic_mode(self):
+        """The band assembly's form: 'moments' unless assembly='jacobian'."""
+        return True if self.assembly == "jacobian" else "moments"
 
     def _current_x(self) -> torch.Tensor:
         """[N + L, 3] dof vector: node poses, then HITL line poses."""
         x = np.concatenate([self.state.solution, self.state.line_poses])
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(x, dtype=self._dtype(), device=self.device)
 
     def _fixed_mask(self) -> torch.Tensor:
         n_dof = 3 * (self.state.num_nodes + len(self.state.line_poses))
@@ -161,13 +199,15 @@ class Solver:
         mask[0:3] = True  # gauge: pose 0 constant
         return mask
 
-    def _odom_factors(self) -> OdomFactors:
-        """Odometry + in-band loop-closure factors (long-range closures go
-        to _long_range_factors)."""
+    def _odom_factors(self, exclude_long_range: bool = False) -> OdomFactors:
+        """Odometry + loop-closure factors.  With exclude_long_range only
+        the in-band closures join; the long-range ones then go to
+        _long_range_factors (the band path)."""
         cfg = self.config
+        lc = self._split_lc()[0] if exclude_long_range else None
         return odom_factors_from_state(self.state, cfg.translation_weight,
                                        cfg.rotation_weight, self.device,
-                                       lc_factors=self._split_lc()[0])
+                                       self._dtype(), lc_factors=lc)
 
     def _long_range_factors(self) -> Optional[OdomFactors]:
         """Long-range loop closures for the Woodbury term (None if none)."""
@@ -179,51 +219,86 @@ class Solver:
             np.asarray([f[2] for f in lr], np.float64),
             np.asarray([f[3] for f in lr], np.float64),
             np.asarray([f[4] for f in lr], np.float64),
-            np.asarray([f[5] for f in lr], np.float64), self.device)
+            np.asarray([f[5] for f in lr], np.float64), self.device,
+            self._dtype())
 
     def _hitl_factors(self) -> Optional[HitlFactors]:
         if not self.state.hitl_constraints:
             return None
         from nautilus_tpu_torch.solve.hitl import build_hitl_factors
-        return build_hitl_factors(self.state)
+        return build_hitl_factors(self.state, self._dtype())
 
     def build_graph(self, x, window, optimization_type: str = "feature",
+                    exclude_long_range: bool = False,
                     odom: Optional[OdomFactors] = None,
                     hitl: Optional[HitlFactors] = None) -> FactorGraph:
-        """Factor graph at x [N + L, 3] for one window size: planar matches
-        feed normal residuals, edge matches point residuals, HITL rows
-        point-to-segment residuals (built from the state unless given)."""
-        if optimization_type != "feature":
-            raise NotImplementedError(
-                f"optimization_type={optimization_type!r} is not ported yet "
-                "(ROADMAP.md section 1, 'associate_chunked')")
+        """Factor graph at x [N + L, 3] for one window size.
+
+        optimization_type 'feature': planar matches feed normal residuals,
+        edge matches point residuals; 'all': whole clouds matched by nearest
+        neighbour feed point residuals, 64 pairs at a time.  HITL rows feed
+        point-to-segment residuals.  The odometry batch (with or without
+        the long-range closures) and the HITL batch are built from the state
+        unless given."""
+        if optimization_type not in ("feature", "all"):
+            raise ValueError(f"optimization_type must be feature or all, got "
+                             f"{optimization_type!r}")
         cfg = self.config
         problem = self.state.problem
         outlier = float(cfg.outlier_threshold)
-        args = (problem, x[:problem.num_nodes], self._pair_src,
-                self._pair_tgt, window, outlier)
-        planar = correspond.associate(*args, feature="planar")
-        edge = correspond.associate(*args, feature="edge")
-        return FactorGraph(odom=self._odom_factors() if odom is None else odom,
-                           planar=planar, edge=edge,
-                           hitl=self._hitl_factors() if hitl is None else hitl)
+        xn = x[:problem.num_nodes]
+        if odom is None:
+            odom = self._odom_factors(exclude_long_range)
+        if hitl is None:
+            hitl = self._hitl_factors()
+        if optimization_type == "all":
+            full = correspond.associate_chunked(
+                problem, xn, self.pairs, window, outlier, feature="all")
+            empty = Correspondences(*[t[:0] for t in full])
+            return FactorGraph(odom=odom, planar=empty, edge=full, hitl=hitl)
+        args = (problem, xn, self._pair_src, self._pair_tgt, window, outlier)
+        planar = correspond.associate(*args, feature="planar",
+                                      use_normal_gate=self.use_normal_gate)
+        edge = correspond.associate(*args, feature="edge",
+                                    use_normal_gate=self.use_normal_gate)
+        return FactorGraph(odom=odom, planar=planar, edge=edge, hitl=hitl)
 
     # -- solving ------------------------------------------------------------
 
-    def _solve_windows(self, w_min: int, w_max: int) -> SolveStats:
-        self._resolve_solver()
+    def _solve_windows(self, w_min: int, w_max: int,
+                       optimization_type: str = "feature") -> SolveStats:
+        kind = self.last_solver = self._resolve_solver()
         stats = SolveStats()
         x = self._current_x()
         fixed = self._fixed_mask()
-        odom = self._odom_factors()
-        lr = self._long_range_factors()
+        # The band solves the long-range closures as Woodbury columns; dense
+        # and CG hold them in the odometry batch.
+        odom = self._odom_factors(exclude_long_range=kind == "band")
+        lr = self._long_range_factors() if kind == "band" else None
+        # CG's band preconditioner: the same graph with the long-range
+        # closures left out, when the odometry itself is within the band.
+        band_odom = (self._odom_factors(exclude_long_range=True)
+                     if kind == "cg" and self._odom_within_band() else None)
         hitl = self._hitl_factors()
         for window in range(w_min, w_max + 1):
             t0 = time.perf_counter()
-            graph = self.build_graph(x, window, odom=odom, hitl=hitl)
-            res: LMResult = lm_solve_banded(
-                x, graph, fixed, params=self.lm_params, layout=self._layout,
-                lr=lr)
+            graph = self.build_graph(x, window, optimization_type, odom=odom,
+                                     hitl=hitl)
+            if kind == "band":
+                res: LMResult = lm_solve_banded(
+                    x, graph, fixed, params=self.lm_params,
+                    layout=self._layout, lr=lr,
+                    analytic=self._analytic_mode())
+            elif kind == "cg":
+                from nautilus_tpu_torch.solve.cg import lm_solve_cg
+                bg = None if band_odom is None else \
+                    graph._replace(odom=band_odom)
+                res = lm_solve_cg(x, graph, fixed, params=self.lm_params,
+                                  band_graph=bg,
+                                  layout=None if bg is None else self._layout)
+            else:
+                res = lm_solve(x, graph, fixed, params=self.lm_params,
+                               layout=self._layout)
             x = res.x
             if not bool(torch.all(torch.isfinite(x))):
                 raise FloatingPointError(
@@ -232,25 +307,24 @@ class Solver:
             stats.windows.append(WindowStats(
                 window=window, initial_cost=res.initial_cost,
                 final_cost=res.cost, iterations=res.iterations,
-                wall_s=time.perf_counter() - t0))
+                wall_s=time.perf_counter() - t0,
+                inner_iterations=res.inner_iterations))
         self._writeback(x)
         return stats
 
     def solve_slam(self, optimization_type: str = "feature") -> SolveStats:
         """Full growing-window solve; updates state.solution in place."""
-        if optimization_type != "feature":
-            raise NotImplementedError(
-                f"optimization_type={optimization_type!r} is not ported yet "
-                "(ROADMAP.md section 1, 'associate_chunked')")
         cfg = self.config
         return self._solve_windows(cfg.get_int("lidar_constraint_amount_min"),
-                                   cfg.get_int("lidar_constraint_amount_max"))
+                                   cfg.get_int("lidar_constraint_amount_max"),
+                                   optimization_type)
 
-    def solve_max_window(self) -> SolveStats:
+    def solve_max_window(self,
+                         optimization_type: str = "feature") -> SolveStats:
         """One solve at the max window size (after loop closures are
         injected)."""
         w = self.config.get_int("lidar_constraint_amount_max")
-        return self._solve_windows(w, w)
+        return self._solve_windows(w, w, optimization_type)
 
     def _writeback(self, x):
         host = x.detach().cpu().numpy().astype(np.float64)

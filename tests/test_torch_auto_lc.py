@@ -56,7 +56,7 @@ def runs():
 
 
 def test_auto_lc_sets_match_jax(runs):
-    _, (js, jrep, _), (ts, trep, _), gt = runs
+    cfg, (js, jrep, _), (ts, trep, _), gt = runs
     assert trep.candidates == jrep.candidates
     assert trep.gated_pairs == jrep.gated_pairs
     assert trep.accepted == jrep.accepted
@@ -70,6 +70,9 @@ def test_auto_lc_sets_match_jax(runs):
         np.testing.assert_allclose(tr, tr2, atol=0.05 + 1e-6)
     assert trep.applied and len(ts.lc_factors) == len(trep.accepted)
     assert set(trep.stage_walls) >= {"candidates", "gate", "csm", "resolve"}
+    # The report carries the re-solve's stats: one window, the max one.
+    assert [w.window for w in trep.resolve_stats.windows] == [
+        cfg.get_int("lidar_constraint_amount_max")]
 
 
 def test_auto_lc_poses_match_jax(runs):
@@ -100,6 +103,32 @@ def test_relative_pose_factor_identity():
 
 
 def test_descriptor_gate_not_ported(runs):
-    cfg, _, (ts, _, _), _ = runs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_auto_lc(Solver(ts, cfg), use_descriptor_gate=True)
+    """The descriptor gate is ported: use_descriptor_gate=True runs (it used
+    to raise NotImplementedError) and keeps a subset of the pairs that pass
+    the chi-square gate at the same solution."""
+    cfg, _, (_, trep, solved_t), _ = runs
+    ts, _ = reverse_traversal_problem(3, device="cpu")
+    ts.solution = solved_t.copy()
+    rep = solve_auto_lc(Solver(ts, cfg), apply=False, verbose=False,
+                        use_descriptor_gate=True,
+                        csm_params=CSMParams(scan_range=10.0, high_res=0.05))
+    assert set(rep.gated_pairs) <= set(trep.gated_pairs)
+    assert ts._descriptor_gate_choice["scorer"] in ("emb", "hand")
+    assert not rep.applied and rep.resolve_stats is None
+
+
+def test_auto_lc_past_the_closure_cap_takes_the_dense_route(runs):
+    """lr_factor_cap below the accepted closures: the gate runs on the band
+    (no closure yet), the re-solve resolves to dense, and the poses match
+    the Woodbury re-solve of the same closures."""
+    cfg, _, (ts_band, trep, solved_t), _ = runs
+    assert trep.accepted
+    ts, _ = reverse_traversal_problem(3, device="cpu")
+    ts.solution = solved_t.copy()
+    solver = Solver(ts, cfg.replace(lr_factor_cap=0))
+    rep = solve_auto_lc(solver, apply=True, verbose=False,
+                        csm_params=CSMParams(scan_range=10.0, high_res=0.05))
+    assert rep.accepted == trep.accepted and rep.applied
+    assert solver.last_solver == "dense"
+    np.testing.assert_allclose(ts.solution, ts_band.solution, atol=1e-3,
+                               rtol=0)

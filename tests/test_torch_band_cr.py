@@ -104,7 +104,8 @@ def bordered():
     jsol, tsol = JSolver(js, cfg), Solver(ts, cfg)
     x = np.concatenate([js.solution, line_pose]).astype(np.float32)
     jgraph = jsol.build_graph(jnp.asarray(x), 3, exclude_long_range=True)
-    tgraph = tsol.build_graph(torch.as_tensor(x), 3)
+    tgraph = tsol.build_graph(torch.as_tensor(x), 3,
+                              exclude_long_range=True)
     jsys, _ = jfac.assemble_banded_system(
         jnp.asarray(x), jgraph, jsol._layout, True, jsol._long_range_factors())
     tsys, _ = tfac.assemble_banded_system(

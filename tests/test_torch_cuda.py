@@ -274,3 +274,136 @@ def test_correlate_unaligned_storage_on_card(dev, shift):
     r.copy_(rasters)
     assert t.data_ptr() % 16 == 4 * shift and t.is_contiguous()
     _correlate_check(dev, t, r, True)
+
+
+# -- the solver's other routes on the card against the CPU -------------------
+
+ROUTE_CFG = ("translation_weight=1\nrotation_weight=1\n"
+             "lc_translation_weight=3\nlc_rotation_weight=3\n"
+             "lidar_constraint_amount_min=1\nlidar_constraint_amount_max=3\n"
+             "outlier_threshold=0.25\nmax_lidar_range=10\n"
+             "accuracy_change_stop_threshold=0.0001\n")
+# A closure between the forward and the return pass of the 32-pose reverse
+# traversal, at the relative pose the ground truth gives.
+ROUTE_CLOSURE = (10, 27, np.array([0.0, 0.4]), float(np.pi), 3.0, 3.0)
+
+
+def _route_solve(device, kind, dtype):
+    """solve_slam, then a re-solve with one closure over a cap of 0, on the
+    32-pose reverse traversal."""
+    from nautilus_tpu_torch.core.luaconf import load_config_text
+    from nautilus_tpu_torch.core.problem import SLAMState
+    from nautilus_tpu_torch.ingest.synthetic import reverse_traversal_problem
+    from nautilus_tpu_torch.solve.solver import Solver
+    state, _ = reverse_traversal_problem(3, device=device)
+    if dtype == torch.float64:
+        cast = {f: getattr(state.problem, f).double()
+                for f in ("points", "normals", "initial_poses", "odom_trans",
+                          "odom_rot")}
+        state = SLAMState.from_problem(state.problem._replace(**cast),
+                                       state.timestamps)
+    cfg = load_config_text(ROUTE_CFG + "lr_factor_cap=0\n")
+    solver = Solver(state, cfg, linear_solver=kind)
+    first = solver.solve_slam()
+    state.lc_factors.append(ROUTE_CLOSURE)
+    second = solver.solve_max_window()
+    return first.final_cost, second.final_cost, solver.last_solver, \
+        state.solution
+
+
+@pytest.mark.parametrize("kind,dtype,resolved,rtol,atol", [
+    # Float32 on two devices: reduction order and transcendental last bits.
+    ("dense", torch.float32, "dense", 1e-4, 1e-3),
+    ("auto", torch.float32, "dense", 1e-4, 1e-3),
+    # CG stops on float32 dot products: the bar between dense and CG.
+    ("cg", torch.float32, "cg", 5e-3, 1e-2),
+    ("auto", torch.float64, "dense", 1e-8, 1e-6),
+    ("cg", torch.float64, "cg", 1e-6, 1e-4),
+])
+def test_solver_routes_on_card_match_cpu(dev, kind, dtype, resolved, rtol,
+                                         atol):
+    c1, c2, ckind, csol = _route_solve("cpu", kind, dtype)
+    g1, g2, gkind, gsol = _route_solve(dev, kind, dtype)
+    assert ckind == gkind == resolved
+    assert g1 == pytest.approx(c1, rel=rtol)
+    assert g2 == pytest.approx(c2, rel=rtol)
+    assert np.all(np.isfinite(gsol))
+    np.testing.assert_allclose(gsol, csol, atol=atol, rtol=0)
+
+
+def test_fused_kernel_from_a_float64_problem_on_card(dev):
+    """The stage engine on a float64 problem's clouds launches the kernel
+    (the clouds are cast, not refused) and scores as the plain version does
+    on the same clouds on the CPU, and exactly as the float32 problem."""
+    from nautilus_tpu_torch.ingest.synthetic import reverse_traversal_problem
+    state, _ = reverse_traversal_problem(3, device=dev)
+    pts64 = state.problem.points.double()
+    msk = state.problem.points_mask
+    params = csm.CSMParams(scan_range=10.0, high_res=0.05)
+    ss, tt = [8, 12, 30], [29, 25, 7]
+    centers = np.full(3, np.pi, np.float32)
+    before = csm_coarse.fused_coarse.launches
+    s64, t64 = csm.csm_match_pairs(pts64, msk, ss, tt, params,
+                                   rotation_centers=centers)
+    assert csm_coarse.fused_coarse.launches == before + 1
+    s32, t32 = csm.csm_match_pairs(state.problem.points, msk, ss, tt, params,
+                                   rotation_centers=centers)
+    np.testing.assert_array_equal(s64, s32)
+    np.testing.assert_array_equal(t64, t32)
+    sc, tc = csm.csm_match_pairs(pts64.cpu(), msk.cpu(), ss, tt, params,
+                                 rotation_centers=centers)
+    # Plain on the CPU against the kernel: the finest grid step.
+    np.testing.assert_allclose(s64, sc, atol=1e-3)
+    np.testing.assert_allclose(t64[:, :2], tc[:, :2], atol=0.05 + 1e-6)
+    np.testing.assert_allclose(t64[:, 2], tc[:, 2], atol=0.05 / 10 + 1e-6)
+    with pytest.raises(TypeError, match="float32"):
+        csm_coarse.fused_coarse(
+            pts64[:2].contiguous(), torch.zeros((2, 4), device=dev),
+            torch.zeros((2, 20, 20), device=dev), cells=16, noff=5,
+            halfwidth=4.0, res=0.5)
+
+
+def test_all_type_sweep_on_card_matches_cpu(dev):
+    """Optimization type ALL at the product's beam count (720 beams, P=768,
+    so a chunk of 64 pairs is the [64, 768, 768] working set): per-window
+    final costs within rtol 1e-3 and poses within 1e-3 of the CPU's.  The
+    nearest-target search is exact up to float32 ties; the costs carry the
+    two devices' reduction orders."""
+    from nautilus_tpu_torch.core.luaconf import load_config_text
+    from nautilus_tpu_torch.core.problem import SLAMProblem
+    from nautilus_tpu_torch.ingest.synthetic import make_problem
+    from nautilus_tpu_torch.solve.solver import Solver
+    import dataclasses
+    card, _ = make_problem(24, "building", num_beams=720, seed=1,
+                           odom_noise_trans=0.02, odom_noise_rot=0.008,
+                           device=dev)
+    cpu = dataclasses.replace(
+        card, solution=card.solution.copy(),
+        problem=SLAMProblem(*[t.cpu() for t in card.problem]))
+    cfg = load_config_text(ROUTE_CFG)
+    stats = {}
+    for name, st in (("card", card), ("cpu", cpu)):
+        stats[name] = Solver(st, cfg).solve_slam(optimization_type="all")
+    for g, c in zip(stats["card"].windows, stats["cpu"].windows):
+        assert g.final_cost <= g.initial_cost
+        assert g.final_cost == pytest.approx(c.final_cost, rel=1e-3)
+    np.testing.assert_allclose(card.solution, cpu.solution, atol=1e-3, rtol=0)
+
+
+def test_hough_normals_on_card_match_cpu(dev):
+    """Where the winning bin is the same the normals agree within 1e-4 (the
+    bar of tests/test_torch_hough.py); a point whose two best bins tie or
+    differ by one vote may change bins on the last bit of rsqrt or acos, so
+    one point in 10,000 may differ."""
+    from nautilus_tpu_torch.core import preprocess as pre
+    from nautilus_tpu_torch.ingest.synthetic import synthesize
+    raw, _ = synthesize(40, "building", num_beams=720, seed=1)
+    pts, msk = torch.as_tensor(raw.points), torch.as_tensor(raw.points_mask)
+    params = pre.NormalParams(method="hough")
+    ref = pre.compute_normals(pts, msk, params)
+    out = pre.compute_normals(pts.to(dev), msk.to(dev), params).cpu()
+    assert bool((out[~msk] == 0).all())
+    err = (out - ref).abs().amax(dim=-1)[msk]
+    assert int((err > 1e-4).sum()) <= 1e-4 * err.numel()
+    np.testing.assert_allclose(
+        torch.linalg.vector_norm(out, dim=-1)[msk].numpy(), 1.0, atol=1e-5)

@@ -43,7 +43,8 @@ def setup():
     jsol, tsol = JSolver(js, cfg), TSolver(ts, cfg)
     x = js.solution.astype(np.float32)
     jgraph = jsol.build_graph(jnp.asarray(x), 3, exclude_long_range=True)
-    tgraph = tsol.build_graph(torch.as_tensor(x), 3)
+    tgraph = tsol.build_graph(torch.as_tensor(x), 3,
+                              exclude_long_range=True)
     return jsol, tsol, x, jgraph, tgraph
 
 

@@ -155,7 +155,8 @@ def bordered():
         s.lc_factors.append((2, 20, rel[:2] + 0.02, float(rel[2]), 2.0, 1.5))
     x = np.concatenate([js.solution, line_pose]).astype(np.float32)
     jgraph = jsol.build_graph(jnp.asarray(x), 3, exclude_long_range=True)
-    tgraph = tsol.build_graph(torch.as_tensor(x), 3)
+    tgraph = tsol.build_graph(torch.as_tensor(x), 3,
+                              exclude_long_range=True)
     jsys, jcost = jfac.assemble_banded_system(
         jnp.asarray(x), jgraph, jsol._layout, True, jsol._long_range_factors())
     tsys, tcost = tfac.assemble_banded_system(

@@ -35,6 +35,27 @@ apply_hitl_line(solver.__class__(state, cfg.replace(hitl_line_width=0.3)),
                 "-5 -5 5 -5 -5 5 5 5".split(), verbose=False)
 assert len(state.hitl_constraints) == 1 and state.line_poses.shape == (1, 3)
 assert np.all(np.isfinite(state.solution)) and state.solution.shape == (8, 3)
+# The other routes: dense, CG and float64 solves, whole-cloud matching,
+# Hough normals, and the descriptor gate with the package's own weights.
+import torch
+from nautilus_tpu_torch.core.preprocess import NormalParams, compute_normals
+from nautilus_tpu_torch.loop_closure import embedding
+from nautilus_tpu_torch.loop_closure.auto_lc import descriptor_gate
+small = cfg.replace(lidar_constraint_amount_max=2)
+for kind, dtype in (("dense", None), ("cg", None), ("auto", torch.float64)):
+    st, _ = make_problem(6, "room", num_beams=120, seed=1, device="cpu",
+                         dtype=dtype)
+    s = Solver(st, small, linear_solver=kind)
+    s.solve_slam()
+    assert np.all(np.isfinite(st.solution)), kind
+assert s.last_solver == "band" and s._current_x().dtype == torch.float64
+s.solve_max_window(optimization_type="all")
+hough = compute_normals(st.problem.points.float(), st.problem.points_mask,
+                        NormalParams(method="hough"))
+assert bool(torch.isfinite(hough).all())
+assert "nautilus_tpu_torch" in embedding.default_weights_path().parts
+kept = descriptor_gate(st, [(0, 1), (0, 5)], 0.5)
+assert st._descriptor_gate_choice["scorer"] in ("emb", "hand")
 bad = [m for m in sys.modules
        if m == "nautilus_tpu" or m.startswith("nautilus_tpu.")]
 assert not bad, bad

@@ -39,7 +39,17 @@ def test_fixed_order_sums_match_plain_sums():
 
 
 def test_hough_normals_not_ported():
+    """The Hough estimator is ported (tests/test_torch_hough.py holds it to
+    the JAX package): preprocess takes method="hough", where it used to
+    raise NotImplementedError."""
     raw, _ = synthesize(4, "room", num_beams=180, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpre.preprocess(raw.points, raw.points_mask, "cpu",
-                        normal_params=tpre.NormalParams(method="hough"))
+    out = tpre.preprocess(raw.points, raw.points_mask, "cpu",
+                          normal_params=tpre.NormalParams(method="hough"))
+    pca = tpre.preprocess(raw.points, raw.points_mask, "cpu")
+    normals = out[0].numpy()
+    assert normals.shape == raw.points.shape
+    np.testing.assert_allclose(
+        np.linalg.norm(normals[raw.points_mask], axis=-1), 1.0, atol=1e-5)
+    # Only the normals depend on the estimator.
+    for a, b in zip(out[1:], pca[1:]):
+        assert torch.equal(a, b)

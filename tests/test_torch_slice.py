@@ -48,3 +48,44 @@ def test_cli_pose_file_matches_jax(tmp_path):
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli.main(["--config_file", "x.lua", flag])
+
+
+def _cfg(tmp_path, name, extra):
+    cfg = tmp_path / f"{name}.lua"
+    shutil.copy(Path(__file__).resolve().parents[1] / "config"
+                / "default_config.lua", tmp_path / "default_config.lua")
+    cfg.write_text(CFG.format(poses=tmp_path / f"{name}_poses.txt")
+                   .replace("pose_number=25", "pose_number=10")
+                   .replace("auto_lc=true", "auto_lc=false") + extra)
+    return ["--config_file", str(cfg), "--synthetic", "room", "--quiet",
+            "--device", "cpu"]
+
+
+def test_mesh_devices_in_the_config_raises(tmp_path):
+    """mesh_devices > 1 asks for the sharded solve, as --devices does: it
+    must raise until that is ported, not run on one device in silence."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_cli.run(_cfg(tmp_path, "mesh", "mesh_devices=2\n"))
+    rc, solver, _ = torch_cli.run(_cfg(tmp_path, "one", "mesh_devices=1\n"))
+    assert rc == 0 and solver.assembly is None
+
+
+@pytest.mark.parametrize("keys,solver_kind,dtype", [
+    ('linear_solver="dense"\nassembly="jacobian"\n', "dense", "float32"),
+    ('linear_solver="cg"\n', "cg", "float32"),
+    ('solver_dtype="float64"\nassembly="moments"\n', "band", "float64"),
+    ('lr_factor_cap=0\nauto_lc=true\n', None, "float32"),
+])
+def test_cli_config_keys_reach_the_solver(tmp_path, keys, solver_kind, dtype):
+    rc, solver, walls = torch_cli.run(_cfg(tmp_path, "keys", keys))
+    assert rc == 0 and "solve" in walls
+    assert str(solver.state.problem.points.dtype) == f"torch.{dtype}"
+    assert np.all(np.isfinite(solver.state.solution))
+    if "assembly" in keys:
+        assert solver.assembly in keys
+    if solver_kind is not None:
+        assert solver.last_solver == solver_kind
+    else:
+        # Any applied long-range closure is over a cap of 0: dense.
+        lr = solver._split_lc()[1]
+        assert solver.last_solver == ("dense" if lr else "band")
