@@ -56,16 +56,28 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    solve_slam (per-window costs against phase 6), linear_solver="cg"
    through solve_max_window on phase 11's closed graph with the band
    preconditioner (final cost against the dense re-solve, LM steps, inner
-   CG iterations), solver_dtype=float64 through make_problem -> solve_slam
-   -> solve_auto_lc (costs beside float32's, counts, ATE, fused launches);
+   CG iterations), then on the same graph 'auto' resolving to CG (an
+   instance's DENSE_MAX_NODES below N) and CG with the block-Jacobi
+   preconditioner (one odometry factor outside the band), each against the
+   dense route on the same input; solver_dtype=float64 through make_problem
+   -> solve_slam -> solve_auto_lc (costs beside float32's, counts, ATE,
+   fused launches);
 13. the small routes at the main path's width: optimization type ALL
    through solve_slam on phase 6's input (1000 poses, 720 beams, chunks of
    64 pairs), then on a 200-pose building at 720 beams against the CPU (per
    window final costs and poses); Hough normals on phase 6's scans against
    the CPU and against the PCA normals; and the descriptor gate on phase
-   6's gated pairs, card against CPU.
+   6's gated pairs, card against CPU;
+14. the mesh (parallel/sharded.py): phase 6's path (solve_slam ->
+   solve_auto_lc(apply=True)) over meshes of 1, 2 and 4 ranks, all on the
+   one card, each held to phase 6 (22/49/27, final cost, closed ATE), with
+   spawn and join walls, bytes reduced per LM step on the band and in a
+   dense max-window solve, and the correlation kernel's launches on every
+   rank; the sharded CSM batch on phase 6's gated pairs against phase 7's
+   single-process pair engine; --devices 2 through the CLI, which a one-card
+   machine refuses with rc 1.
 
-Each path (6 to 13) starts with every launch count at 0 and reads them
+Each path (6 to 14) starts with every launch count at 0 and reads them
 when it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
@@ -125,6 +137,15 @@ GATE_SCORE_REL = {"dense": 1e-2, "band": 3e-2, "dense vs band": 4e-2}
 # Phase 12: CG's final cost against the dense re-solve's (the bar between
 # the JAX package's dense and CG sweeps, tests/test_cg.py).
 CG_COST_REL = 5e-3
+# The two other CG routes ('auto' past DENSE_MAX_NODES, block Jacobi) against
+# the dense route on the same input.
+CG_ROUTE_RTOL = 1e-3
+# Phase 14: phase 6's path over meshes of these sizes on the one card, held
+# to phase 6's single-process run: a sum over ranks adds in another order,
+# so costs and poses are held, not iteration counts.
+MESH_SIZES = (1, 2, 4)
+MESH_COST_RTOL = 1e-4
+MESH_ATE_ATOL = 1e-3
 # Closures that phase 11 lets ride the band as Woodbury columns.
 LR_CAP = 8
 # Phase 13.  Optimization type ALL: the card's per-window final costs and
@@ -1062,6 +1083,7 @@ def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
         fail(f"CG final cost {w.final_cost} differs from the dense "
              f"re-solve's {dense.final_cost} by more than {CG_COST_REL}")
     print(f"  kernel launches on the dense and CG routes: {read_counts()}")
+    cg_routes_on_the_closed_graph(state, phase11)
 
     # -- float64, from make_problem to the closed map --------------------------
     zero_counts()
@@ -1105,6 +1127,66 @@ def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
     if not ate_closed < ate(x0, gt)["trans_rmse"]:
         fail("float64 closed ATE is not below odometry's")
     return {"fused_launches_f64": counts["fused_coarse"]}
+
+
+def cg_routes_on_the_closed_graph(state, phase11):
+    """Phase 12's two other CG routes on phase 11's closed graph, from the
+    point its re-solve began, each against the dense route on the same
+    input: 'auto' past the closure cap on an instance whose DENSE_MAX_NODES
+    is below N (the route 'auto' takes past 8000 poses), and CG with the
+    block-Jacobi preconditioner, which one odometry factor outside the band
+    selects."""
+    import numpy as np
+    from nautilus_tpu_torch.solve.solver import Solver
+
+    def closed(extra_odometry=None):
+        st = fresh_state(state, phase11["x_solved"])
+        st.lc_factors = list(phase11["lc_factors"])
+        if extra_odometry is not None:
+            a, b = extra_odometry
+            i, j, trans, rot = st.odometry_factors
+            rel = st.solution[b] - st.solution[a]
+            st.odometry_factors = (
+                np.append(i, a), np.append(j, b), np.vstack([trans, rel[:2]]),
+                np.append(rot, np.arctan2(np.sin(rel[2]), np.cos(rel[2]))))
+        return st
+
+    n = state.num_nodes
+    far = (n // 10, n // 2)
+    dense_far, wall_far = timed(
+        Solver(closed(far), phase11["cfg"], linear_solver="dense"
+               ).solve_max_window)
+    auto = Solver(closed(), phase11["cfg"])
+    auto.DENSE_MAX_NODES = n - 1
+    jacobi = Solver(closed(far), phase11["cfg"], linear_solver="cg")
+    routes = [("'auto' with DENSE_MAX_NODES < N", auto, "band",
+               phase11["dense_resolve"], None),
+              (f"'cg' with odometry factor {far} outside the band", jacobi,
+               "block Jacobi", dense_far.windows[0], wall_far)]
+    for name, solver, want_precond, dense, dense_wall in routes:
+        stats, wall = timed(solver.solve_max_window)
+        precond = "band" if solver._odom_within_band() else "block Jacobi"
+        print(f"  {name}: resolved to {solver.last_solver!r}, {precond} "
+              f"preconditioner, wall {wall!r} s; per window (window, LM "
+              f"steps, inner CG iterations, initial cost, final cost | "
+              f"dense on the same input):")
+        for w in stats.windows:
+            print(f"    {w.window} {w.iterations} {w.inner_iterations} "
+                  f"{w.initial_cost!r} {w.final_cost!r} | "
+                  f"{dense.final_cost!r}")
+        print(f"    dense on the same input: wall "
+              f"{dense.wall_s if dense_wall is None else dense_wall!r} s",
+              flush=True)
+        if solver.last_solver != "cg" or precond != want_precond:
+            fail(f"{name} ran on {solver.last_solver!r} with the {precond} "
+                 f"preconditioner, not CG with the {want_precond} one")
+        if not np.all(np.isfinite(solver.state.solution)):
+            fail(f"non-finite poses after {name}")
+        if abs(stats.final_cost - dense.final_cost) \
+                > CG_ROUTE_RTOL * dense.final_cost:
+            fail(f"{name}: final cost {stats.final_cost} differs from the "
+                 f"dense route's {dense.final_cost} by more than rtol "
+                 f"{CG_ROUTE_RTOL}")
 
 
 def on_cpu(state):
@@ -1257,6 +1339,147 @@ def descriptor_gate_phase(cfg, state_at_gate, gated_pairs, read_counts):
              "descriptor_gate on the same pairs")
 
 
+def sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate, pair_result,
+                  zero_counts):
+    """Phase 14: phase 6's path over meshes of MESH_SIZES ranks on the one
+    card, each held to phase 6's single-process run; the sharded CSM batch
+    against phase 7's single-process pair engine on the same gated pairs;
+    a dense max-window solve over the mesh for its reduction's size; and
+    --devices 2 through the CLI, which a one-card machine refuses.
+    Returns each mesh size's correlate launches per rank."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch import cli
+    from nautilus_tpu_torch.loop_closure import auto_lc
+    from nautilus_tpu_torch.parallel.sharded import default_mesh
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.utils.metrics import ate
+
+    stats6, report6 = phase6["stats"], phase6["report"]
+    n_ref = (len(report6.candidates), len(report6.gated_pairs),
+             len(report6.accepted))
+    params = auto_lc._csm_params_from_config(cfg)
+    match_w = int(cfg.get("lc_match_window_size", 0))
+    s_pr, tr_pr, best_pr = pair_result
+    per_rank = {}
+    for size in MESH_SIZES:
+        zero_counts()
+        mesh, t_spawn = timed(lambda: default_mesh(size, dev))
+        try:
+            mesh.launches(reset=True)
+            traffic = [(mesh.rank.reductions, mesh.rank.reduced_bytes)]
+
+            def mark():
+                """(reductions, bytes reduced) since the last mark."""
+                traffic.append((mesh.rank.reductions, mesh.rank.reduced_bytes))
+                a, b = traffic[-2], traffic[-1]
+                return b[0] - a[0], b[1] - a[1]
+
+            st = fresh_state(state, x0)
+            solver = Solver(st, cfg, mesh=mesh)
+            stats, t_sweep = timed(solver.solve_slam)
+            sweep_red = mark()
+            x_solved = st.solution.copy()
+            report, t_lc = timed(lambda: auto_lc.solve_auto_lc(
+                solver, apply=True, verbose=False))
+            resolve_red = mark()
+            launches = [c["correlate"] for c in mesh.launches(reset=True)]
+            ate_closed = ate(st.solution, gt)["trans_rmse"]
+            (scores, transforms, best, n_exp), t_csm = timed(
+                lambda: auto_lc.match_gated_pairs(
+                    at_gate, report6.gated_pairs, params, match_w, mesh=mesh))
+            csm_launches = [c["correlate"] for c in mesh.launches(reset=True)]
+            mark()
+            dense_st = fresh_state(state, x_solved)
+            dense_st.lc_factors = list(st.lc_factors)
+            dense = Solver(dense_st, cfg, linear_solver="dense", mesh=mesh)
+            dense_stats, t_dense = timed(dense.solve_max_window)
+            dense_red = mark()
+        finally:
+            _, t_join = timed(mesh.close)
+        n = (len(report.candidates), len(report.gated_pairs),
+             len(report.accepted))
+        resolve = report.resolve_stats.windows[0]
+        print(f"  mesh of {size} rank(s) on {dev}: spawn and group join "
+              f"{t_spawn!r} s, stop and join the workers {t_join!r} s; "
+              f"solve_slam on "
+              f"{solver.last_solver!r} wall {t_sweep!r} s, final cost "
+              f"{stats.final_cost!r} (one process {stats6.final_cost!r}); "
+              f"auto-LC wall {t_lc!r} s, stages {report.stage_walls}, engine "
+              f"{report.csm_engine!r}; re-solve {resolve.iterations} LM steps "
+              f"{resolve.wall_s!r} s")
+        print(f"    candidates/gated/accepted {n[0]}/{n[1]}/{n[2]} (one "
+              f"process {n_ref[0]}/{n_ref[1]}/{n_ref[2]}); closed ATE "
+              f"{ate_closed!r} m (one process {phase6['ate_closed']!r}); "
+              f"correlate launches per rank in auto-LC {launches}")
+        steps = {"sweep": sum(w.iterations for w in stats.windows),
+                 "resolve": resolve.iterations,
+                 "dense": dense_stats.windows[0].iterations}
+        print("    reductions, bytes reduced and bytes per LM step: "
+              + "; ".join(
+                  f"{name} {k} reductions, {b} B, {b / max(steps[key], 1)!r} "
+                  f"B per LM step ({steps[key]} LM steps)"
+                  for name, key, (k, b) in (
+                      ("sweep on the band", "sweep", sweep_red),
+                      ("auto-LC with the Woodbury re-solve", "resolve",
+                       resolve_red),
+                      ("dense max-window solve", "dense", dense_red)))
+              + f"; x sent to each worker per command "
+                f"{3 * state.num_nodes * 4} B")
+        print(f"    dense max-window solve over the mesh: {t_dense!r} s, "
+              f"final cost {dense_stats.final_cost!r} against the Woodbury "
+              f"re-solve's {resolve.final_cost!r}")
+        d_score = float(np.abs(scores - s_pr).max())
+        d_tr = float(np.abs(transforms - tr_pr).max())
+        print(f"    sharded CSM batch on phase 6's {len(scores)} gated pairs "
+              f"({n_exp} window-expanded) in {t_csm!r} s, correlate launches "
+              f"per rank {csm_launches}: max |d score| {d_score!r}, max |d "
+              f"transform| {d_tr!r} against one process's pair engine; best "
+              f"targets equal {np.array_equal(best, best_pr)}", flush=True)
+        if n != n_ref:
+            fail(f"mesh of {size}: candidates/gated/accepted {n} differ from "
+                 f"one process's {n_ref}")
+        if report.csm_engine != "sharded pair" or solver.last_solver != "band":
+            fail(f"mesh of {size}: auto-LC matched on {report.csm_engine!r}, "
+                 f"the solve ran on {solver.last_solver!r}")
+        if not np.all(np.isfinite(st.solution)):
+            fail(f"mesh of {size}: non-finite poses")
+        if abs(stats.final_cost - stats6.final_cost) \
+                > MESH_COST_RTOL * stats6.final_cost:
+            fail(f"mesh of {size}: final cost {stats.final_cost} not within "
+                 f"rtol {MESH_COST_RTOL} of one process's {stats6.final_cost}")
+        if abs(ate_closed - phase6["ate_closed"]) > MESH_ATE_ATOL:
+            fail(f"mesh of {size}: closed ATE {ate_closed} not within "
+                 f"{MESH_ATE_ATOL} m of one process's {phase6['ate_closed']}")
+        if abs(dense_stats.final_cost - resolve.final_cost) \
+                > DENSE_COST_RTOL * resolve.final_cost:
+            fail(f"mesh of {size}: the dense re-solve's cost "
+                 f"{dense_stats.final_cost} differs from the Woodbury "
+                 f"re-solve's {resolve.final_cost}")
+        if d_score or d_tr or not np.array_equal(best, best_pr):
+            fail(f"mesh of {size}: the sharded CSM batch differs from one "
+                 f"process's pair engine")
+        if min(launches) == 0 or min(csm_launches) == 0:
+            fail(f"mesh of {size}: a rank never launched the correlation "
+                 f"kernel ({launches}, {csm_launches})")
+        per_rank[size] = launches
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--config_file", str(ROOT / "config"
+                                             / "default_config.lua"),
+                       "--synthetic", "building", "--devices", "2", "--quiet"])
+    print(f"  CLI --devices 2 on {torch.cuda.device_count()} card(s): rc {rc}, "
+          f"{out.getvalue().strip()!r}", flush=True)
+    if torch.cuda.device_count() == 1 and (
+            rc != 1 or "device(s) visible" not in out.getvalue()):
+        fail("--devices 2 on a one-card machine did not return 1 with the "
+             "reference's message")
+    return per_rank
+
+
 def main():
     if not (ROOT / "nautilus_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1270,7 +1493,7 @@ def main():
 
     # -- 1. environment ------------------------------------------------------
     t_all = time.perf_counter()
-    print("[1/13] environment", flush=True)
+    print("[1/14] environment", flush=True)
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
     from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
@@ -1293,7 +1516,7 @@ def main():
         return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    print("[2/13] build: one nvcc per kernel source, started together",
+    print("[2/14] build: one nvcc per kernel source, started together",
           flush=True)
     sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
     t0 = time.perf_counter()
@@ -1308,7 +1531,7 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    print(f"[3/13] fused coarse kernel against plain (bench shapes at C=8 and "
+    print(f"[3/14] fused coarse kernel against plain (bench shapes at C=8 and "
           f"at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
           f"gdc_2020 range)", flush=True)
     cases = [kernel_case(dev, scan_range=30.0),
@@ -1317,7 +1540,7 @@ def main():
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    print(f"[4/13] correlation kernel against plain (the pair engine's batch "
+    print(f"[4/14] correlation kernel against plain (the pair engine's batch "
           f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
           f"table in global memory)", flush=True)
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
@@ -1328,7 +1551,7 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    print("[5/13] small-input reference: card vs CPU", flush=True)
+    print("[5/14] small-input reference: card vs CPU", flush=True)
     small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -1338,7 +1561,7 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    print("[6/13] main path: make_problem(1000, building, 720 beams, seed 1) "
+    print("[6/14] main path: make_problem(1000, building, 720 beams, seed 1) "
           "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses",
           flush=True)
     from nautilus_tpu_torch.core.luaconf import load_config
@@ -1409,7 +1632,7 @@ def main():
     system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    print("[7/13] pair engine: bench.py's CSM leg, then the main path's gated "
+    print("[7/14] pair engine: bench.py's CSM leg, then the main path's gated "
           "pairs through engine='pair' against engine='stage'", flush=True)
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
@@ -1427,13 +1650,13 @@ def main():
         wall = time.perf_counter() - t0
         accepted = [(s, int(t)) for (s, _), t, sc in
                     zip(report.gated_pairs, best_tt, scores) if sc >= threshold]
-        result[engine] = (scores, transforms, accepted)
+        result[engine] = (scores, transforms, accepted, best_tt)
         print(f"  gated pairs engine={engine}: {n_exp} window-expanded pairs "
               f"in {wall!r} s ({n_exp / wall!r} pairs/s), accepted "
               f"{len(accepted)}", flush=True)
     pair_counts = read_counts()
-    s_st, tr_st, acc_st = result["stage"]
-    s_pr, tr_pr, acc_pr = result["pair"]
+    s_st, tr_st, acc_st, _ = result["stage"]
+    s_pr, tr_pr, acc_pr, best_pr = result["pair"]
     d_trans = float(np.abs(tr_pr[:, :2] - tr_st[:, :2]).max())
     d_rot = float(np.abs(tr_pr[:, 2] - tr_st[:, 2]).max())
     d_score = float(np.abs(s_pr - s_st).max())
@@ -1455,7 +1678,7 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    print(f"[8/13] HITL: bench.py's scripted constraint (lines "
+    print(f"[8/14] HITL: bench.py's scripted constraint (lines "
           f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map",
           flush=True)
     from nautilus_tpu_torch.cli import apply_hitl_line
@@ -1510,14 +1733,14 @@ def main():
              f"({cost_start} -> {hitl_costs[0]})")
 
     # -- 9. bag path ------------------------------------------------------------
-    print("[9/13] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+    print("[9/14] bag path: bench.py's GDC-scale bag (1000 poses, building, "
           "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
           "--write --vectorize and auto_lc=true", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         bag_path_phase(Path(tmp), zero_counts, read_counts)
 
     # -- 10. CR backend -----------------------------------------------------------
-    print("[10/13] CR backend: make_problem(5000, building, 720 beams, seed 1) "
+    print("[10/14] CR backend: make_problem(5000, building, 720 beams, seed 1) "
           "-> solve_slam, then scan against CR at N=1000 and N=5000",
           flush=True)
     solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
@@ -1527,7 +1750,7 @@ def main():
     del solver_5000
 
     # -- 11. dense fallback -----------------------------------------------------
-    print(f"[11/13] dense fallback: phase 6's input with lr_factor_cap="
+    print(f"[11/14] dense fallback: phase 6's input with lr_factor_cap="
           f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
           "on dense Cholesky; then the gate's dense engine against its band "
           "engine", flush=True)
@@ -1537,14 +1760,14 @@ def main():
                                    read_counts)
 
     # -- 12. the other routes ---------------------------------------------------
-    print("[12/13] other routes on the same input: dense sweep, CG on the "
+    print("[12/14] other routes on the same input: dense sweep, CG on the "
           "closed graph, float64 from make_problem to the closed map",
           flush=True)
     phase12 = other_routes_phase(cfg, state, x0, gt, stats, phase11, dev,
                                  zero_counts, read_counts)
 
     # -- 13. the small routes ---------------------------------------------------
-    print("[13/13] small routes at the main path's width: optimization type "
+    print("[13/14] small routes at the main path's width: optimization type "
           "ALL, Hough normals, the descriptor gate on phase 6's gated pairs",
           flush=True)
     zero_counts()
@@ -1552,6 +1775,14 @@ def main():
     hough_phase(state)
     descriptor_gate_phase(cfg, fresh_state(state, x_solved),
                           list(report.gated_pairs), read_counts)
+
+    # -- 14. the mesh ---------------------------------------------------------
+    print(f"[14/14] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
+          "one card, the sharded CSM batch against phase 7's pair engine, "
+          "--devices 2 through the CLI", flush=True)
+    phase6["stats"] = stats
+    mesh_launches = sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate,
+                                  (s_pr, tr_pr, best_pr), zero_counts)
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")
@@ -1581,7 +1812,8 @@ def main():
                "nautilus_tpu_torch/kernels/csrc/csm_correlate.cu",
                "nautilus_tpu/kernels/csm_pallas.py:43",
                pair_counts["correlate"], corr_err, corr_shape,
-               "HBM bytes at 3.35 TB/s")]}))
+               "HBM bytes at 3.35 TB/s",
+               launches_sharded_per_rank=mesh_launches)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,17 +19,21 @@ Curation commands:
   once the solve and curation are done;
 - ``--interactive``: a stdin loop of ``hitl <8 floats>``, ``write``,
   ``vectorize`` and ``quit``.
+
+``--devices N`` (or the config key ``mesh_devices``) with N > 1 spreads the
+solve and auto-LC's CSM batch over a mesh of N ranks on the run's device
+(parallel/sharded.py); N may not exceed the visible cards (cores with
+``--device cpu``).  ``--ros`` returns 1: the port has no ROS bridge.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import os
 import sys
 import time
 from pathlib import Path
-
-# Flags of the JAX CLI that the port does not have yet (ROADMAP.md).
-_NOT_PORTED = {"--ros": "viz", "--devices": "sharded"}
 
 
 def build_state(cfg, args, device, verbose=True, walls=None):
@@ -107,9 +111,19 @@ def _interactive(solver, cfg, verbose):
                 vectorize(solver.state, cfg.map_output_file, verbose=verbose)
             else:
                 print(f"Unknown command: {cmd}")
-        except (ValueError, NotImplementedError, OSError) as e:
-            # Bad input must not end the curation session.
+        except Exception as e:
+            # Bad input or a failed solve must not end the curation session,
+            # but after a CUDA error such as a device-side assert every
+            # later call on the card fails.
+            if _poisons_the_card(e):
+                raise
             print(f"Error: {e}")
+
+
+def _poisons_the_card(e: Exception) -> bool:
+    text = str(e)
+    return isinstance(e, RuntimeError) and ("CUDA error" in text
+                                            or "device-side assert" in text)
 
 
 def main(argv=None) -> int:
@@ -120,10 +134,6 @@ def run(argv=None):
     """The CLI's work: (exit code, Solver or None, walls in seconds by stage:
     ingest, preprocess, solve, auto_lc, hitl, write, vectorize)."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    for flag, item in _NOT_PORTED.items():
-        if any(a == flag or a.startswith(flag + "=") for a in argv):
-            raise NotImplementedError(
-                f"{flag} is not yet ported (ROADMAP.md section 1, '{item}')")
     ap = argparse.ArgumentParser(prog="nautilus_tpu_torch")
     ap.add_argument("--config_file", required=True,
                     help="Lua config (same surface as the JAX package)")
@@ -143,27 +153,66 @@ def run(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "card, so the CPU runs only with --device cpu)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks of the factor-parallel mesh (overrides the "
+                         "config key mesh_devices)")
+    ap.add_argument("--ros", action="store_true",
+                    help="ROS visualization and input (not in the port)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     verbose = not args.quiet
 
     from nautilus_tpu_torch.core.luaconf import load_config, validate_config
     from nautilus_tpu_torch.core.problem import default_device
-    from nautilus_tpu_torch.io.poses import load_solution, write_poses
-    from nautilus_tpu_torch.io.vectorize import vectorize
-    from nautilus_tpu_torch.solve.solver import Solver
 
     cfg = load_config(args.config_file)
     validate_config(cfg, require_bag=not args.synthetic)
-    if int(cfg.get("mesh_devices", 0)) > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1 is not yet ported (ROADMAP.md section 1, "
-            "'sharded')")
     walls = {}
     if not args.synthetic and not cfg.bag_path:
         print("Must specify an input bag!")
         return 1, None, walls
+    if args.ros:
+        if importlib.util.find_spec("rospy") is None:
+            print("--ros requested but rospy is not importable.")
+        else:
+            print("--ros requested but the PyTorch port has no ROS bridge.")
+        return 1, None, walls
     device = default_device(args.device)
+    # --devices overrides mesh_devices; N > 1 spreads the solve and the CSM
+    # batch over N ranks on the run's device.
+    n_mesh = args.devices if args.devices is not None else int(
+        cfg.get("mesh_devices", 0))
+    mesh = None
+    if n_mesh > 1:
+        avail = _visible_devices(device)
+        if n_mesh > avail:
+            print(f"--devices/mesh_devices={n_mesh} but only {avail} "
+                  f"device(s) visible.")
+            return 1, None, walls
+        from nautilus_tpu_torch.parallel.sharded import default_mesh
+        mesh = default_mesh(n_mesh, device)
+        if verbose:
+            print(f"Sharding the solve over {n_mesh} devices "
+                  f"({device.type}).")
+    try:
+        return _run(args, cfg, device, mesh, walls, verbose)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _visible_devices(device) -> int:
+    """Ranks a mesh may have on ``device``'s kind: the visible cards, or
+    the cores on the CPU."""
+    import torch
+    return torch.cuda.device_count() if device.type == "cuda" \
+        else (os.cpu_count() or 1)
+
+
+def _run(args, cfg, device, mesh, walls, verbose):
+    from nautilus_tpu_torch.io.poses import load_solution, write_poses
+    from nautilus_tpu_torch.io.vectorize import vectorize
+    from nautilus_tpu_torch.solve.solver import Solver
 
     state = build_state(cfg, args, device, verbose=verbose, walls=walls)
     if args.solution_poses:
@@ -173,7 +222,7 @@ def run(argv=None):
 
     solver = Solver(state, cfg,
                     linear_solver=cfg.get("linear_solver", "auto"),
-                    assembly=cfg.get("assembly", None) or None)
+                    assembly=cfg.get("assembly", None) or None, mesh=mesh)
     t0 = time.perf_counter()
     stats = solver.solve_slam()
     walls["solve"] = time.perf_counter() - t0

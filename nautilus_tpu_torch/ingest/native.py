@@ -1,10 +1,11 @@
 """ctypes bindings for the port's native C++ bag reader (port of
 nautilus_tpu/ingest/native.py).
 
-``native/bagreader.cc`` is compiled with g++ at first use into
-``build/nautilus_tpu_torch/`` at the repository root, keyed by a hash of
-the source, the flags and the libraries it links, as the CUDA kernels are
-(``kernels/_build.py``).  Nothing is written next to the source.
+``native/bagreader.cc`` is compiled with g++ at first use into the
+directory the CUDA kernels are built in (``kernels/_build.py``: the
+checkout's ``build/nautilus_tpu_torch/``, or a per-user cache directory for
+an installed package), keyed by a hash of the source, the flags and the
+libraries it links.  Nothing is written next to the source.
 
 The Python parser (``ingest/rosbag.py``) stands in for one case only: the
 system libbz2, which the reader links, is absent.  ``reader_name()`` says

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
 Each source under ``csrc/`` is compiled on first use into its own shared
-library with a plain C interface, in ``build/nautilus_tpu_torch/`` at the
-repository root, keyed by a hash of the source and the flags.  ``build_all``
+library with a plain C interface, keyed by a hash of the source and the
+flags, in ``build/nautilus_tpu_torch/`` at the repository root when the
+package sits in a checkout, else (an installed package) in
+``~/.cache/nautilus_tpu_torch/build``.  ``build_all``
 starts one nvcc per source, all at once, and waits for them together.
 """
 
@@ -20,7 +22,19 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nautilus_tpu_torch"
+
+
+def build_dir(root: Path) -> Path:
+    """Where the port's native libraries are built for a package whose
+    parent directory is ``root``: ``root/build/nautilus_tpu_torch`` in a
+    checkout (``root`` holds pyproject.toml), a per-user cache directory
+    for an installed package."""
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "nautilus_tpu_torch"
+    return Path.home() / ".cache" / "nautilus_tpu_torch" / "build"
+
+
+BUILD_DIR = build_dir(Path(__file__).resolve().parents[2])
 # No fast math and no fused multiply-add: the kernels then round each
 # operation as the separate torch ops of their plain versions do.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

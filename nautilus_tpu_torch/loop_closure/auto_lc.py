@@ -9,7 +9,8 @@
    learned embedding or the hand descriptor (``descriptor_gate``);
 3. correlative scan matching per gated pair, each pair's target widened to
    its +-lc_match_window_size trajectory neighbours (best member wins),
-   accepted at csm_score_threshold;
+   accepted at csm_score_threshold; the stage engine on one device, the
+   pair engine split over the ranks when the solver has a mesh;
 4. each accepted match becomes a weighted relative-pose factor;
 5. re-solve at the max window.
 
@@ -44,6 +45,9 @@ class AutoLCReport:
     stage_walls: dict = dataclasses.field(default_factory=dict)
     # The re-solve's SolveStats when closures were applied, else None.
     resolve_stats: object = None
+    # Which engine scan-matched the gated pairs: "stage" on one device,
+    # "sharded pair" over the solver's mesh.
+    csm_engine: str = ""
 
 
 def _csm_params_from_config(cfg) -> CSMParams:
@@ -199,7 +203,7 @@ def descriptor_gate(state, pairs, threshold: float,
 
 
 def match_gated_pairs(state, gated_pairs, params: CSMParams, match_w: int,
-                      engine: str = "stage"):
+                      engine: str = "stage", mesh=None):
     """Scan-match each gated pair (s, t) against t's +-match_w trajectory
     neighbours; the best-scoring member wins.  Rotation searches are
     centred on the solution-implied relative heading, so reverse
@@ -207,7 +211,9 @@ def match_gated_pairs(state, gated_pairs, params: CSMParams, match_w: int,
 
     Returns (scores [K], transforms [K, 3], best targets [K], number of
     window-expanded pairs matched); ``engine`` picks csm_match_pairs'
-    engine."""
+    engine.  With a ``mesh`` the pair list is split over its ranks, each
+    running the pair engine (parallel.sharded.csm_match_pairs_sharded), as
+    the JAX package does with a mesh."""
     n_nodes = state.num_nodes
     exp_ss, exp_tt, owner = [], [], []
     for k, (s, t) in enumerate(gated_pairs):
@@ -219,9 +225,16 @@ def match_gated_pairs(state, gated_pairs, params: CSMParams, match_w: int,
                 owner.append(k)
     ss, tt = np.asarray(exp_ss, np.int64), np.asarray(exp_tt, np.int64)
     centers = wrap_angle(state.solution[ss, 2] - state.solution[tt, 2])
-    all_scores, all_transforms = csm_match_pairs(
-        state.problem.points, state.problem.points_mask, ss, tt, params,
-        rotation_centers=centers, engine=engine)
+    if mesh is not None:
+        from nautilus_tpu_torch.parallel.sharded import \
+            csm_match_pairs_sharded
+        all_scores, all_transforms = csm_match_pairs_sharded(
+            state.problem.points, state.problem.points_mask, ss, tt, mesh,
+            params, rotation_centers=centers)
+    else:
+        all_scores, all_transforms = csm_match_pairs(
+            state.problem.points, state.problem.points_mask, ss, tt, params,
+            rotation_centers=centers, engine=engine)
     all_transforms = np.asarray(all_transforms, np.float64)
     scores = np.full(len(gated_pairs), -np.inf)
     transforms = np.zeros((len(gated_pairs), 3))
@@ -293,9 +306,11 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
         return report
 
     t0 = time.perf_counter()
+    mesh = solver.mesh
+    report.csm_engine = "stage" if mesh is None else "sharded pair"
     scores, transforms, best_tt, _ = match_gated_pairs(
         state, report.gated_pairs, csm_params or _csm_params_from_config(cfg),
-        int(cfg.get("lc_match_window_size", 0)))
+        int(cfg.get("lc_match_window_size", 0)), mesh=mesh)
     threshold = float(cfg.csm_score_threshold)
     wt = float(cfg.lc_translation_weight)
     wr = float(cfg.lc_rotation_weight)

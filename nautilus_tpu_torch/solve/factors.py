@@ -487,22 +487,25 @@ class BandLayout(NamedTuple):
         return offs
 
 
-def _corr_blocks(x, corr: Correspondences, normal: bool, analytic):
-    """(Hq, gq, cost) of one correspondence batch."""
-    ps, pt = x[corr.src], x[corr.tgt]
-    if normal:
-        data = (corr.src_pts, corr.tgt_pts, corr.src_nrm, corr.tgt_nrm,
-                corr.mask)
-        moments, linearize = _moments_normal, _linearize_normal
-    else:
-        data = (corr.src_pts, corr.tgt_pts, corr.mask)
-        moments, linearize = _moments_point, _linearize_point
-    if analytic == "moments":
-        return moments(ps, pt, *data)
-    if analytic is not True:
+_MOMENTS = {
+    point_residual: _moments_point,
+    normal_residual: _moments_normal,
+}
+
+
+def _factor_blocks(x, spec, analytic):
+    """(Hq [Q, 6, 6], gq [Q, 6], cost) of one two-pose factor batch
+    (idx_a, idx_b, residual_fn, data): the moment form for the
+    correspondence residuals when analytic == 'moments', else J^T J and
+    J^T r of its linearization (analytic=True)."""
+    if analytic not in ("moments", True):
         raise ValueError(f"analytic must be 'moments' or True, got "
                          f"{analytic!r}")
-    r, J = linearize(ps, pt, *data)
+    idx_a, idx_b, item_fn, data = spec
+    moments = _MOMENTS.get(item_fn) if analytic == "moments" else None
+    if moments is not None:
+        return moments(x[idx_a], x[idx_b], *data)
+    r, J, _ = linearize_two_pose(x, idx_a, idx_b, item_fn, data)
     Hq, gq = _jtj(r, J)
     return Hq, gq, 0.5 * torch.sum(r * r)
 
@@ -518,10 +521,10 @@ def _accumulate_banded(x, graph: FactorGraph, layout: BandLayout,
     band = torch.zeros((w, n, 3, 3), dtype=dt, device=dev)
     gd = torch.zeros((n, 3), dtype=dt, device=dev)
     cost = torch.zeros((), dtype=dt, device=dev)
-    for corr, normal in ((graph.planar, True), (graph.edge, False)):
-        if corr.src.shape[0] == 0:
+    for spec in corr_factor_specs(graph):
+        if spec[0].shape[0] == 0:
             continue
-        Hq, gq, c = _corr_blocks(x, corr, normal, analytic)
+        Hq, gq, c = _factor_blocks(x, spec, analytic)
         cost = cost + c
         for d in range(1, w + 1):
             cnt = n - d
@@ -536,18 +539,16 @@ def _accumulate_banded(x, graph: FactorGraph, layout: BandLayout,
     return diag, band, gd, cost
 
 
-def _scatter_band_factor(lv, gd, cost, x, od: OdomFactors):
-    """Scatter one odometry-style factor batch into the band levels
-    lv [w+1, N, 3, 3] (level 0 = diagonal, level d = block (i, i-d) at row
-    i) and the gradient gd.  Requires |i - j| <= w (assemble_banded_system
-    checks)."""
-    if od.count == 0:
+def _scatter_band_factor(lv, gd, cost, x, spec, analytic=True):
+    """Scatter one two-pose factor batch (idx_a, idx_b, residual_fn, data)
+    into the band levels lv [w+1, N, 3, 3] (level 0 = diagonal, level d =
+    block (i, i-d) at row i) and the gradient gd, in any factor order.
+    Requires |idx_a - idx_b| <= w (the callers check on the host)."""
+    a, b = spec[0], spec[1]
+    if a.shape[0] == 0:
         return lv, gd, cost
-    r, J = _linearize_odom(x[od.i], x[od.j], od.trans, od.rot, od.mask,
-                           od.wt, od.wr)
-    Hq, gq = _jtj(r, J)
-    cost = cost + 0.5 * torch.sum(r * r)
-    a, b = od.i, od.j
+    Hq, gq, c = _factor_blocks(x, spec, analytic)
+    cost = cost + c
     lo = torch.maximum(a, b)
     delta = torch.abs(a - b)
     lower = torch.where((a > b)[:, None, None], Hq[:, :3, 3:],
@@ -608,6 +609,42 @@ def _hitl_border(lv, gd, cost, x, graph: FactorGraph, n: int, L: int):
     return lv, gd, cost, C, E, gl
 
 
+def _refuse_out_of_band(span: int, w: int):
+    if span > w:
+        raise ValueError(
+            f"band assembly of a factor with |i - j| = {span} > {w}: build "
+            "the graph with exclude_long_range=True and pass the long-range "
+            "closures as lr, or assemble the dense system")
+
+
+def assemble_banded_scatter(x, graph: FactorGraph, n: int, w: int,
+                            analytic=True, *, pair_span: int):
+    """Band-form assembly of a factor graph in any factor order, by scatter
+    into [w+1, n, 3, 3]: (BandedSystem without U, cost).
+
+    This is the assembly of one rank's slice of the factor lists
+    (parallel/sharded.py): a contiguous slice of the delta-major pair list
+    has no slice-add layout.  The summed slices equal
+    assemble_banded_system on the whole graph.  Every two-node factor must
+    satisfy |i - j| <= w, checked before any scatter: odometry through
+    ``OdomFactors.span``, correspondences through ``pair_span`` (their
+    largest |src - tgt|, which the caller knows on the host).  HITL rows
+    enter as the border C, E, gl."""
+    _refuse_out_of_band(graph.odom.span, w)
+    _refuse_out_of_band(pair_span, w)
+    L = x.shape[0] - n
+    lv = torch.zeros((w + 1, n, 3, 3), dtype=x.dtype, device=x.device)
+    gd = torch.zeros((n, 3), dtype=x.dtype, device=x.device)
+    cost = torch.zeros((), dtype=x.dtype, device=x.device)
+    for spec in corr_factor_specs(graph) + [odom_factor_spec(graph)]:
+        lv, gd, cost = _scatter_band_factor(lv, gd, cost, x, spec, analytic)
+    C = E = gl = None
+    if L:
+        lv, gd, cost, C, E, gl = _hitl_border(lv, gd, cost, x, graph, n, L)
+    return BandedSystem(diag=lv[0], band=lv[1:], g=gd, C=C, E=E,
+                        gl=gl), cost
+
+
 def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
                            analytic="moments", lr: OdomFactors = None):
     """Normal equations in block-band(+border) form: (BandedSystem, cost).
@@ -620,17 +657,13 @@ def assemble_banded_system(x, graph: FactorGraph, layout: BandLayout,
     a map with long-range closures) raises ValueError: its block has no
     slot in the band.
     """
-    if graph.odom.span > layout.w:
-        raise ValueError(
-            f"band assembly of a factor with |i - j| = {graph.odom.span} > "
-            f"{layout.w}: build the graph with exclude_long_range=True and "
-            "pass the long-range closures as lr, or assemble the dense "
-            "system")
+    _refuse_out_of_band(graph.odom.span, layout.w)
     n = layout.n
     L = x.shape[0] - n
     diag, band, gd, cost = _accumulate_banded(x, graph, layout, analytic)
     lv = torch.cat([diag[None], band])
-    lv, gd, cost = _scatter_band_factor(lv, gd, cost, x, graph.odom)
+    lv, gd, cost = _scatter_band_factor(lv, gd, cost, x,
+                                        odom_factor_spec(graph))
     U = None
     if lr is not None and lr.count:
         U, g_lr, cost_lr = lowrank_factor_columns(x, lr, n)

@@ -8,6 +8,12 @@ nautilus_tpu/solve/solver.py).
 - ``solve_max_window``: one solve at the max window, used after loop
   closures are applied.
 
+With a ``mesh`` (parallel/sharded.py) both run the factor-parallel sweep
+for optimization type "feature": every rank associates and assembles its
+slice of the factor lists and the controller sums them, on the band when
+the resolved solver is "band" and densely otherwise ("cg" included: it has
+no sharded engine in the JAX package either).
+
 The dof vector is [solution; line_poses]: N node poses, then one free line
 pose per HITL constraint (L of them, no padding).  Pose 0 is the gauge.
 Solver state has the dtype of the problem's clouds (float32, or float64
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -103,7 +110,8 @@ class Solver:
                  lm_params: Optional[LMParams] = None,
                  linear_solver: str = "auto",
                  use_normal_gate: bool = False,
-                 assembly: Optional[str] = None):
+                 assembly: Optional[str] = None,
+                 mesh=None):
         """linear_solver: 'band', 'dense', 'cg', or 'auto' (band when
         eligible, else dense up to DENSE_MAX_NODES nodes, else cg).
 
@@ -112,7 +120,13 @@ class Solver:
 
         assembly: 'moments' or None for the moment-form band assembly (J^T J
         and J^T r from per-point scalar sums, J never formed), 'jacobian'
-        for the closed-form J and its contraction."""
+        for the closed-form J and its contraction.
+
+        mesh: a parallel.sharded.Mesh on the problem's device.  When set,
+        solve_slam and solve_max_window run the factor-parallel sweep for
+        optimization type "feature", and auto-LC's CSM batch is split over
+        the mesh.  Product surface: the config key ``mesh_devices`` or the
+        CLI's ``--devices``."""
         if linear_solver not in ("auto", "band", "dense", "cg"):
             raise ValueError(f"linear_solver must be auto, band, dense or cg, "
                              f"got {linear_solver!r}")
@@ -122,6 +136,10 @@ class Solver:
         self.state = state
         self.config = config
         self.device = state.problem.device
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh runs on {mesh.device}, the problem "
+                             f"on {self.device}")
+        self.mesh = mesh
         self.lm_params = lm_params or LMParams(
             step_tolerance=float(
                 config.get("accuracy_change_stop_threshold", 0.0)),
@@ -268,6 +286,12 @@ class Solver:
     def _solve_windows(self, w_min: int, w_max: int,
                        optimization_type: str = "feature") -> SolveStats:
         kind = self.last_solver = self._resolve_solver()
+        if self.mesh is not None:
+            if optimization_type == "feature":
+                return self._solve_sharded(kind, w_min, w_max)
+            warnings.warn("mesh set but optimization type 'all' runs on the "
+                          "single-device path; running single-device",
+                          stacklevel=3)
         stats = SolveStats()
         x = self._current_x()
         fixed = self._fixed_mask()
@@ -309,6 +333,34 @@ class Solver:
                 final_cost=res.cost, iterations=res.iterations,
                 wall_s=time.perf_counter() - t0,
                 inner_iterations=res.inner_iterations))
+        self._writeback(x)
+        return stats
+
+    def _solve_sharded(self, kind: str, w_min: int, w_max: int) -> SolveStats:
+        """The sweep over self.mesh (parallel.sharded.sharded_sweep): band
+        form with the long-range closures as Woodbury columns when the
+        solver resolved to the band, dense form otherwise.  The band form
+        takes the closed-form J, as the JAX package's sharded sweep does."""
+        from nautilus_tpu_torch.parallel.sharded import sharded_sweep
+        use_band = kind == "band"
+        self.last_solver = "band" if use_band else "dense"
+        t0 = time.perf_counter()
+        x, initial, final, iterations = sharded_sweep(
+            self._current_x(), self.state.problem, self._pair_src,
+            self._pair_tgt, self._odom_factors(exclude_long_range=use_band),
+            self._hitl_factors(), self._fixed_mask(),
+            float(self.config.outlier_threshold), w_min, w_max, self.mesh,
+            self.lm_params, self.use_normal_gate, use_band,
+            self._long_range_factors() if use_band else None)
+        if not bool(torch.all(torch.isfinite(x))):
+            raise FloatingPointError("Non-finite poses after sharded solve; "
+                                     "check odometry/scan inputs.")
+        per = (time.perf_counter() - t0) / (w_max - w_min + 1)
+        stats = SolveStats([
+            WindowStats(window=w_min + k, initial_cost=float(initial[k]),
+                        final_cost=float(final[k]),
+                        iterations=int(iterations[k]), wall_s=per)
+            for k in range(w_max - w_min + 1)])
         self._writeback(x)
         return stats
 

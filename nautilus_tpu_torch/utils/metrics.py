@@ -69,3 +69,36 @@ def ate(est, ref, align: bool = True):
         "trans_max": float(np.max(d)),
         "rot_rmse": float(np.sqrt(np.mean(dth ** 2))),
     }
+
+
+def _relative(poses, delta):
+    """Relative SE(2) transforms pose_i^{-1} o pose_{i+delta}:
+    (dx, dy in frame i, dtheta), each [N-delta, ...]."""
+    a = poses[:-delta]
+    b = poses[delta:]
+    dp = b[:, :2] - a[:, :2]
+    c, s = np.cos(a[:, 2]), np.sin(a[:, 2])
+    local = np.stack([c * dp[:, 0] + s * dp[:, 1],
+                      -s * dp[:, 0] + c * dp[:, 1]], axis=1)
+    return local, wrap_angle(b[:, 2] - a[:, 2])
+
+
+def rpe(est, ref, delta: int = 1):
+    """Relative pose error at step ``delta`` (drift per delta nodes).
+
+    Gauge-invariant by construction — no alignment needed.  Returns dict
+    with translational RMSE / mean (meters) and rotational RMSE (rad).
+    """
+    est = np.asarray(est, np.float64)
+    ref = np.asarray(ref, np.float64)
+    if len(est) <= delta:
+        raise ValueError(f"need more than {delta} poses, got {len(est)}")
+    te, re_ = _relative(est, delta)
+    tr, rr = _relative(ref, delta)
+    d = np.linalg.norm(te - tr, axis=1)
+    dth = wrap_angle(re_ - rr)
+    return {
+        "trans_rmse": float(np.sqrt(np.mean(d ** 2))),
+        "trans_mean": float(np.mean(d)),
+        "rot_rmse": float(np.sqrt(np.mean(dth ** 2))),
+    }

@@ -102,10 +102,9 @@ def test_relative_pose_factor_identity():
     assert rot == pytest.approx(0.0)
 
 
-def test_descriptor_gate_not_ported(runs):
-    """The descriptor gate is ported: use_descriptor_gate=True runs (it used
-    to raise NotImplementedError) and keeps a subset of the pairs that pass
-    the chi-square gate at the same solution."""
+def test_descriptor_gate_keeps_a_subset_of_the_chi_square_gate(runs):
+    """use_descriptor_gate=True keeps a subset of the pairs that pass the
+    chi-square gate at the same solution."""
     cfg, _, (_, trep, solved_t), _ = runs
     ts, _ = reverse_traversal_problem(3, device="cpu")
     ts.solution = solved_t.copy()

@@ -414,3 +414,29 @@ def test_cli_interactive_loop(tmp_path, monkeypatch, capsys):
     assert rows
     vals = np.array([r.split(",") for r in rows], float)
     assert vals.shape[1] == 4 and np.all(np.isfinite(vals))
+
+
+@pytest.mark.parametrize("error,survives", [
+    (FloatingPointError("Non-finite poses after HITL solve"), True),
+    (RuntimeError("CUDA error: device-side assert triggered"), False),
+])
+def test_cli_interactive_loop_survives_what_the_reference_survives(
+        tmp_path, monkeypatch, capsys, error, survives):
+    """A failed solve ends no curation session, as in the reference; only a
+    CUDA error that poisons the card's context ends it."""
+    def fail(*args, **kwargs):
+        raise error
+
+    monkeypatch.setattr(torch_cli, "apply_hitl_line", fail)
+    stdin = f"hitl {CLI_LINE}\nwrite\nquit\n"
+    if not survives:
+        with pytest.raises(RuntimeError, match="device-side assert"):
+            _cli(tmp_path, "poisoned", ["--interactive"], stdin=stdin,
+                 monkeypatch=monkeypatch)
+        assert not (tmp_path / "poisoned_poses.txt").exists()
+        return
+    _, poses = _cli(tmp_path, "survives", ["--interactive"], stdin=stdin,
+                    monkeypatch=monkeypatch)
+    out = capsys.readouterr().out
+    assert f"Error: {error}" in out and "Wrote poses" in out
+    assert len(read_pose_file(poses)) == 16

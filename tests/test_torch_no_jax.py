@@ -151,3 +151,81 @@ def test_no_jax_imports_in_package():
                 if top in ("jax", "jaxlib", "nautilus_tpu"):
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
+
+
+def test_package_data_ships_what_the_port_loads(tmp_path):
+    """An installed port can build its kernels and its bag reader and load
+    its weights: every package-data glob names a package setuptools finds
+    and matches files, and together they match every file the port reads
+    from its own tree.  Outside a checkout, builds go to a per-user cache."""
+    import tomllib
+
+    from setuptools import find_packages
+
+    from nautilus_tpu_torch.ingest import native
+    from nautilus_tpu_torch.kernels import _build
+    from nautilus_tpu_torch.loop_closure import embedding
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    tool = conf["tool"]["setuptools"]
+    packages = set(find_packages(str(ROOT),
+                                 include=tool["packages"]["find"]["include"]))
+    shipped = set()
+    for pkg, globs in tool["package-data"].items():
+        if pkg.split(".")[0] != "nautilus_tpu_torch":
+            continue
+        assert pkg in packages, pkg
+        for pattern in globs:
+            hits = set((ROOT / pkg.replace(".", "/")).glob(pattern))
+            assert hits, (pkg, pattern)
+            shipped |= hits
+    needed = {native.SOURCE, embedding.default_weights_path(),
+              *_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")}
+    assert needed <= shipped, needed - shipped
+    assert conf["project"]["scripts"]["nautilus_tpu_torch"] == \
+        "nautilus_tpu_torch.cli:main"
+    assert conf["project"]["optional-dependencies"]["nautilus_tpu_torch"] \
+        == ["torch"]
+    assert _build.BUILD_DIR == ROOT / "build" / "nautilus_tpu_torch"
+    assert _build.build_dir(tmp_path) == \
+        Path.home() / ".cache" / "nautilus_tpu_torch" / "build"
+
+
+# Run as a script file: spawned workers import the main script as
+# __mp_main__, so the blocks at its top hold in every rank of the mesh.
+MESH = """
+import sys
+sys.modules["jax"] = None                 # any jax import now fails
+sys.modules["nautilus_tpu"] = None        # and so does the JAX package's
+sys.path.insert(0, {root!r})
+
+if __name__ == "__main__":
+    import numpy as np
+    from nautilus_tpu_torch.core.luaconf import load_config
+    from nautilus_tpu_torch.ingest.synthetic import make_problem
+    from nautilus_tpu_torch.kernels.csm import CSMParams
+    from nautilus_tpu_torch.parallel.sharded import (csm_match_pairs_sharded,
+                                                     default_mesh)
+    from nautilus_tpu_torch.solve.solver import Solver
+    cfg = load_config({cfg!r}).replace(lidar_constraint_amount_max=3)
+    state, _ = make_problem(8, "room", num_beams=180, seed=0, device="cpu")
+    with default_mesh(2, "cpu") as mesh:
+        stats = Solver(state, cfg, mesh=mesh).solve_slam()
+        scores, _ = csm_match_pairs_sharded(
+            state.problem.points, state.problem.points_mask, [1, 2, 3],
+            [0, 1, 2], mesh, CSMParams(scan_range=6.0))
+    assert mesh.closed and not any(p.is_alive() for p in mesh._procs)
+    assert np.all(np.isfinite(scores)) and np.isfinite(stats.final_cost)
+    print("ok", len(stats.windows))
+"""
+
+
+def test_mesh_workers_run_with_jax_blocked(tmp_path):
+    """The workers of a mesh import neither jax nor the JAX package."""
+    script = tmp_path / "mesh.py"
+    script.write_text(MESH.format(
+        root=str(ROOT), cfg=str(ROOT / "config" / "default_config.lua")))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().startswith("ok")

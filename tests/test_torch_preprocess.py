@@ -38,10 +38,9 @@ def test_fixed_order_sums_match_plain_sums():
                                atol=1e-4)
 
 
-def test_hough_normals_not_ported():
-    """The Hough estimator is ported (tests/test_torch_hough.py holds it to
-    the JAX package): preprocess takes method="hough", where it used to
-    raise NotImplementedError."""
+def test_preprocess_takes_hough_normals():
+    """preprocess takes method="hough" (tests/test_torch_hough.py holds the
+    estimator to the JAX package), and only the normals change."""
     raw, _ = synthesize(4, "room", num_beams=180, seed=0)
     out = tpre.preprocess(raw.points, raw.points_mask, "cpu",
                           normal_params=tpre.NormalParams(method="hough"))

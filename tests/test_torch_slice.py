@@ -44,12 +44,6 @@ def test_cli_pose_file_matches_jax(tmp_path):
                                np.stack(list(jp.values())), atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("flag", ["--ros", "--devices=2"])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli.main(["--config_file", "x.lua", flag])
-
-
 def _cfg(tmp_path, name, extra):
     cfg = tmp_path / f"{name}.lua"
     shutil.copy(Path(__file__).resolve().parents[1] / "config"
@@ -61,13 +55,29 @@ def _cfg(tmp_path, name, extra):
             "--device", "cpu"]
 
 
-def test_mesh_devices_in_the_config_raises(tmp_path):
-    """mesh_devices > 1 asks for the sharded solve, as --devices does: it
-    must raise until that is ported, not run on one device in silence."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli.run(_cfg(tmp_path, "mesh", "mesh_devices=2\n"))
+# The reference's answers: without rospy, and to more ranks than there are
+# devices (cores with --device cpu).
+@pytest.mark.parametrize("flag,message", [
+    ("--ros", "--ros requested but rospy is not importable."),
+    ("--devices=4096", "--devices/mesh_devices=4096 but only"),
+])
+def test_refused_flags_return_1(tmp_path, capsys, flag, message):
+    rc, solver, _ = torch_cli.run(_cfg(tmp_path, "refused", "") + [flag])
+    assert rc == 1 and solver is None
+    assert message in capsys.readouterr().out
+
+
+def test_mesh_devices_in_the_config_selects_the_mesh(tmp_path):
+    """mesh_devices > 1 asks for the sharded solve, as --devices does: the
+    solve runs over a mesh of that many ranks, which is closed when the run
+    returns, and gives the single-process poses."""
+    rc, solver, _ = torch_cli.run(_cfg(tmp_path, "mesh", "mesh_devices=2\n"))
+    assert rc == 0 and solver.mesh.size == 2 and solver.mesh.closed
+    sharded = solver.state.solution
     rc, solver, _ = torch_cli.run(_cfg(tmp_path, "one", "mesh_devices=1\n"))
-    assert rc == 0 and solver.assembly is None
+    assert rc == 0 and solver.mesh is None and solver.assembly is None
+    np.testing.assert_allclose(sharded, solver.state.solution, atol=2e-3,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("keys,solver_kind,dtype", [

@@ -69,9 +69,8 @@ def test_solve_max_window_with_long_range_closures(solved):
     np.testing.assert_allclose(ts.solution, js.solution, atol=1e-3, rtol=0)
 
 
-def test_unported_configurations_raise():
-    """Every route of the JAX Solver is ported: the configurations that
-    used to raise NotImplementedError now solve, and a misspelt one raises
+def test_every_solver_route_solves_and_a_misspelt_one_raises():
+    """The dense, CG and ALL routes solve, and a misspelt solver raises
     ValueError."""
     cfg = load_config_text(CFG)
     for kind in ("dense", "cg"):
