@@ -75,9 +75,22 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    dense max-window solve, and the correlation kernel's launches on every
    rank; the sharded CSM batch on phase 6's gated pairs against phase 7's
    single-process pair engine; --devices 2 through the CLI, which a one-card
-   machine refuses with rc 1.
+   machine refuses with rc 1;
+15. the visualizer, the ROS command bridge and the library calls: phase 6's
+   input through solve_slam with a SnapshotVisualizer (one snapshot per
+   window and the initial one; final cost against phase 6's), one window
+   with per_iteration_viz (a snapshot per LM step), bench.py's HITL message
+   wire-encoded through RosInputBridge.dispatch on phase 8's closed map
+   (per-window costs against phase 8's), /write_output and
+   /vectorize_output; best_scan_match and csm_match_grouped on phase 6's
+   gated pairs against the pair engine, counting correlation launches; and
+   the device busy share of phase 6's solve and auto-LC, from a
+   torch.profiler trace (utils/timer.profile_to) of each;
+16. the trainer: the embedding's train(300 steps, seed 0) on the card and
+   on the CPU (losses per step, weights, calibration), walls and steps/s,
+   then phase 13's descriptor gate with the weights it wrote and read back.
 
-Each path (6 to 14) starts with every launch count at 0 and reads them
+Each path (6 to 16) starts with every launch count at 0 and reads them
 when it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
@@ -168,6 +181,22 @@ HOUGH_PCA_SHARE = 0.5
 # Scan against CR: the steps' largest difference relative to the scan's
 # largest entry, as tests/test_torch_band_cr.py holds the two backends.
 CR_STEP_REL = 2e-3
+# Phase 15.  A visualizer changes no math: the visualized sweep's final cost
+# against phase 6's band sweep.  The HITL message through the bridge runs
+# phase 8's computation again on the same closed map: its per-window costs
+# against phase 8's.  best_scan_match and csm_match_grouped run the pair
+# engine's kernel on other batches: scores within LIB_SCORE_ATOL (the
+# tests' bar) and transforms within the finest grid step of the pair
+# engine's on the same pairs.
+VIZ_COST_RTOL = 1e-4
+BRIDGE_COST_RTOL = 1e-5
+LIB_SCORE_ATOL = 1e-4
+# Phase 16: the trainer on the card against the port's CPU trainer (which the
+# tests hold to the JAX trainer within rtol 1e-5 and atol 1e-4): each step's
+# loss, the final weights and the calibration scalar.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_WEIGHT_ATOL = 1e-3
+TRAIN_CALIB_ATOL = 1e-3
 
 
 def fail(msg):
@@ -1337,6 +1366,7 @@ def descriptor_gate_phase(cfg, state_at_gate, gated_pairs, read_counts):
     if rep.gated_pairs != kept["cuda"]:
         fail("solve_auto_lc's descriptor gate kept another set than "
              "descriptor_gate on the same pairs")
+    return kept["cuda"], c["scorer"]
 
 
 def sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate, pair_result,
@@ -1480,6 +1510,275 @@ def sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate, pair_result,
     return per_rank
 
 
+def hitl_message_phase(cfg, closed, hitl_ref):
+    """Phase 15's bridge: bench.py's HITL line pair, wire-encoded, through
+    RosInputBridge.dispatch on phase 8's closed map, against phase 8's
+    apply_hitl_line of the same line; then /write_output and
+    /vectorize_output."""
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.viz import ros_encode
+    from nautilus_tpu_torch.viz.bridge import RosInputBridge
+
+    with tempfile.TemporaryDirectory() as tmp:
+        poses, lines = Path(tmp) / "poses.txt", Path(tmp) / "map.csv"
+        bcfg = cfg.replace(hitl_line_width=HITL_WIDTH,
+                           pose_output_file=str(poses),
+                           map_output_file=str(lines))
+        solver = Solver(closed, bcfg)
+        recorded, solve = [], solver.solve_slam
+
+        def solve_and_record():
+            recorded.append(solve())
+            return recorded[-1]
+
+        solver.solve_slam = solve_and_record
+        bridge = RosInputBridge(solver, bcfg, verbose=False)
+        buff = ros_encode.encode_hitl_input(*HITL_LINES)
+        _, t_hitl = timed(lambda: bridge.dispatch(bridge.hitl_topic, buff))
+        worst = 0.0
+        for got, want in zip(recorded, hitl_ref):
+            for g, w in zip(got.windows, want.windows):
+                for a, b in ((g.initial_cost, w.initial_cost),
+                             (g.final_cost, w.final_cost)):
+                    worst = max(worst, abs(a - b) / abs(b))
+        _, t_write = timed(lambda: bridge.dispatch(
+            "/write_output", ros_encode.encode_write_msg()))
+        _, t_vec = timed(lambda: bridge.dispatch(
+            "/vectorize_output", ros_encode.encode_write_msg()))
+        rows = len(poses.read_text().splitlines()) if poses.exists() else 0
+        segments = len(lines.read_text().splitlines()) if lines.exists() \
+            else 0
+    c = closed.hitl_constraints[0] if closed.hitl_constraints else None
+    print(f"  bridge: {len(buff)}-byte HitlSlamInputMsg on "
+          f"{bridge.hitl_topic!r} in {t_hitl!r} s (phase 8's apply_hitl_line "
+          f"{sum(st.total_wall_s for st in hitl_ref)!r} s of solves); poses "
+          f"line A / B {len(c.line_a_poses) if c else 0} / "
+          f"{len(c.line_b_poses) if c else 0}; per-window costs of "
+          f"{len(recorded)} solves against phase 8's: largest relative "
+          f"difference {worst!r} (rtol {BRIDGE_COST_RTOL})")
+    print(f"  bridge: /write_output {t_write!r} s ({rows} pose lines), "
+          f"/vectorize_output {t_vec!r} s ({segments} segments); handled "
+          f"{bridge.handled}", flush=True)
+    if len(recorded) != 2 or [len(st.windows) for st in recorded] != \
+            [len(st.windows) for st in hitl_ref]:
+        fail("the bridged HITL message did not run phase 8's two solves")
+    if not worst <= BRIDGE_COST_RTOL:
+        fail(f"the bridged HITL step's costs differ from phase 8's by "
+             f"{worst} relative")
+    if rows != closed.num_nodes or segments == 0 or bridge.handled != 3:
+        fail("/write_output or /vectorize_output wrote no pose file or map")
+
+
+def library_calls_phase(cfg, at_gate, gated_pairs, zero_counts, read_counts):
+    """Phase 15's library calls on phase 6's gated pairs: best_scan_match
+    per source (solution-implied rotation centres) and csm_match_grouped
+    (centres 0), each against the pair engine on the same pairs.  Returns
+    their correlation kernel launches."""
+    import numpy as np
+    from nautilus_tpu_torch.kernels.csm import (csm_match_grouped,
+                                                csm_match_pairs, wrap_angle)
+    from nautilus_tpu_torch.loop_closure import auto_lc
+
+    params = auto_lc._csm_params_from_config(cfg)
+    pts, msk = at_gate.problem.points, at_gate.problem.points_mask
+    ss = np.array([s for s, _ in gated_pairs])
+    tt = np.array([t for _, t in gated_pairs])
+    centers = wrap_angle(at_gate.solution[ss, 2] - at_gate.solution[tt, 2])
+    ref_c = csm_match_pairs(pts, msk, ss, tt, params,
+                            rotation_centers=centers, engine="pair")
+    ref_0 = csm_match_pairs(pts, msk, ss, tt, params, engine="pair")
+    step_t, step_r = params.high_res, params.high_res / params.scan_range
+    zero_counts()
+    sources = sorted(set(ss.tolist()))
+    best, t_best = timed(lambda: {s: auto_lc.best_scan_match(
+        at_gate, s, tt[ss == s].tolist(), params) for s in sources})
+    best_launches = read_counts()["correlate"]
+    zero_counts()
+    (g_scores, g_tr), t_grouped = timed(lambda: csm_match_grouped(
+        pts, msk, ss, tt, params))
+    grouped_launches = read_counts()["correlate"]
+    d_best = [0.0, 0.0, 0.0]
+    for s, (score, t, tr) in best.items():
+        rows = np.nonzero(ss == s)[0]
+        k = rows[int(np.argmax(ref_c[0][rows]))]
+        if t != tt[k] and abs(ref_c[0][rows[tt[rows] == t][0]]
+                              - ref_c[0][k]) > LIB_SCORE_ATOL:
+            fail(f"best_scan_match picked scan {t} for {s}, the pair engine "
+                 f"{tt[k]}")
+        k = rows[tt[rows] == t][0]
+        d_best = [max(d_best[0], abs(score - ref_c[0][k])),
+                  max(d_best[1], float(np.abs(tr[:2] - ref_c[1][k, :2])
+                                       .max())),
+                  max(d_best[2], abs(float(tr[2]) - ref_c[1][k, 2]))]
+    d_grp = [float(np.abs(g_scores - ref_0[0]).max()),
+             float(np.abs(g_tr[:, :2] - ref_0[1][:, :2]).max()),
+             float(np.abs(g_tr[:, 2] - ref_0[1][:, 2]).max())]
+    print(f"  best_scan_match: {len(sources)} sources over "
+          f"{len(gated_pairs)} gated pairs in {t_best!r} s, "
+          f"{best_launches} correlation launches; against the pair engine "
+          f"max |d score| {d_best[0]!r}, |d translation| {d_best[1]!r} m, "
+          f"|d rotation| {d_best[2]!r} rad")
+    print(f"  csm_match_grouped: {len(set(tt.tolist()))} targets in "
+          f"{t_grouped!r} s, {grouped_launches} correlation launches; "
+          f"against the pair engine max |d score| {d_grp[0]!r}, "
+          f"|d translation| {d_grp[1]!r} m, |d rotation| {d_grp[2]!r} rad "
+          f"(bars {LIB_SCORE_ATOL}, {step_t} m, {step_r!r} rad)", flush=True)
+    for name, d, launches in (("best_scan_match", d_best, best_launches),
+                              ("csm_match_grouped", d_grp,
+                               grouped_launches)):
+        if launches == 0:
+            fail(f"{name} never launched the correlation kernel")
+        if d[0] > LIB_SCORE_ATOL or d[1] > step_t + 1e-6 \
+                or d[2] > step_r + 1e-6:
+            fail(f"{name} disagrees with the pair engine on the same pairs")
+    return best_launches + grouped_launches
+
+
+def busy_share_phase(cfg, state, x0, walls6):
+    """Phase 15's profile: phase 6's solve and auto-LC, each in its own
+    torch.profiler session (utils/timer.profile_to, read in memory: the
+    solve's trace would be hundreds of MB).  The device busy share is the
+    union of the kernels' intervals over the region's wall under the
+    profiler, and over phase 6's wall of the same work without it."""
+    from nautilus_tpu_torch.loop_closure import auto_lc
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.utils.timer import (device_busy_s, device_trace,
+                                                profile_to)
+
+    solver = Solver(fresh_state(state, x0), cfg)
+    shares = {}
+    for name, fn in (("solve", solver.solve_slam),
+                     ("auto-LC", lambda: auto_lc.solve_auto_lc(
+                         solver, apply=True, verbose=False))):
+        with profile_to() as prof:
+            with device_trace(f"nautilus {name}"):
+                result, wall = timed(fn)
+        t0 = time.perf_counter()
+        busy = device_busy_s(prof)
+        t_read = time.perf_counter() - t0
+        events = len(prof.profiler.kineto_results.events())
+        shares[name] = (busy / wall, busy / walls6[name]) if busy > 0 \
+            else None
+        print(f"  profiled {name}: wall {wall!r} s under the profiler "
+              f"(phase 6: {walls6[name]!r} s without it), kernels busy "
+              f"{busy!r} s; busy share {shares[name]!r} (profiled wall, "
+              f"phase 6's wall); {events} events, read in {t_read!r} s",
+              flush=True)
+    counts = (len(result.candidates), len(result.gated_pairs),
+              len(result.accepted))
+    print(f"  profiled auto-LC candidates/gated/accepted {counts}")
+    if None in shares.values():
+        print("  busy share: the profile holds no kernel events, not "
+              "measured")
+    return shares
+
+
+def visualizer_phase(cfg, state, x0, stats6, walls6, closed, hitl_ref,
+                     at_gate, gated_pairs, zero_counts, read_counts):
+    """Phase 15.  Returns (correlation launches of the library calls,
+    busy shares)."""
+    from nautilus_tpu_torch.solve.solver import Solver
+    from nautilus_tpu_torch.viz.visualizer import SnapshotVisualizer
+
+    vis = SnapshotVisualizer(record_clouds=False)
+    solver = Solver(fresh_state(state, x0), cfg, visualizer=vis)
+    stats, wall = timed(solver.solve_slam)
+    windows = [s.window for s in vis.snapshots]
+    rel = abs(stats.final_cost - stats6.final_cost) / abs(stats6.final_cost)
+    print(f"  visualized solve_slam: wall {wall!r} s (phase 6 "
+          f"{stats6.total_wall_s!r} s of windows), {len(vis.snapshots)} "
+          f"snapshots (windows {windows}), {len(vis.correspondences)} "
+          f"correspondence sets; final cost {stats.final_cost!r} against "
+          f"phase 6's {stats6.final_cost!r} (relative {rel!r}, rtol "
+          f"{VIZ_COST_RTOL})")
+    if windows != [None] + [w.window for w in stats.windows]:
+        fail("the visualized sweep did not draw the initial solution and "
+             "every window")
+    if not rel <= VIZ_COST_RTOL:
+        fail("the visualized sweep's final cost differs from phase 6's")
+    w = cfg.get_int("lidar_constraint_amount_max")
+    vis = SnapshotVisualizer(record_clouds=False)
+    solver = Solver(fresh_state(state, x0),
+                    cfg.replace(lidar_constraint_amount_min=w),
+                    visualizer=vis, per_iteration_viz=True)
+    stats, wall = timed(solver.solve_slam)
+    steps = len(vis.snapshots) - 2
+    print(f"  per_iteration_viz, window {w} alone on the {solver.last_solver}"
+          f" route: {stats.windows[0].iterations} LM steps, {steps} step "
+          f"snapshots, wall {wall!r} s, final cost {stats.final_cost!r}",
+          flush=True)
+    if steps != stats.windows[0].iterations or solver.last_solver != "dense":
+        fail("per_iteration_viz did not draw once per LM step on the dense "
+             "route")
+    hitl_message_phase(cfg, closed, hitl_ref)
+    launches = library_calls_phase(cfg, at_gate, gated_pairs, zero_counts,
+                                   read_counts)
+    return launches, busy_share_phase(cfg, state, x0, walls6)
+
+
+def trainer_phase(dev, state_at_gate, gated_pairs, threshold, shipped):
+    """Phase 16: the embedding trainer on the card against the CPU, then
+    the descriptor gate with the weights it wrote.  ``shipped``: phase 13's
+    kept set and choice with the shipped weights."""
+    import numpy as np
+    import torch
+    from nautilus_tpu_torch.loop_closure import auto_lc, embedding
+
+    feats, t_pairs = {}, {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        feats[name], t_pairs[name] = timed(
+            lambda: embedding._training_pairs(seed=0, device=d))
+    moved = sum(int(((a.cpu() - b).abs().amax(1) > 1e-5).sum())
+                for a, b in zip(feats["cuda"], feats["cpu"]))
+    d_feat = max(float((a.cpu() - b).abs().max())
+                 for a, b in zip(feats["cuda"], feats["cpu"]))
+    print(f"  training pairs: {len(feats['cpu'][0])}; built in "
+          f"{t_pairs['cuda']!r} s on the card, {t_pairs['cpu']!r} s on the "
+          f"CPU; features card vs CPU max |d| {d_feat!r}, rows beyond 1e-5: "
+          f"{moved}", flush=True)
+    losses, params, walls = {}, {}, {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        losses[name] = []
+        params[name], walls[name] = timed(lambda: embedding.train(
+            verbose=False, device=d, losses=losses[name]))
+    lc, lp = np.asarray(losses["cuda"]), np.asarray(losses["cpu"])
+    loss_rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+    w_err = max(float((params["cuda"][k].cpu() - params["cpu"][k])
+                      .abs().max()) for k in ("w1", "b1", "w2", "b2"))
+    c_err = abs(float(params["cuda"]["calib"]) - float(params["cpu"]["calib"]))
+    for name in ("cuda", "cpu"):
+        steps_s = len(losses[name]) / (walls[name] - t_pairs[name])
+        print(f"  train(300, seed=0) on {name}: wall {walls[name]!r} s "
+              f"(training pairs about {t_pairs[name]!r} s of it), "
+              f"{steps_s!r} steps/s without them; loss "
+              f"{losses[name][0]!r} -> {losses[name][-1]!r}, calib "
+              f"{float(params[name]['calib'])!r}")
+    print(f"  card vs CPU: loss max relative {loss_rel!r} (rtol "
+          f"{TRAIN_LOSS_RTOL}), weights max |d| {w_err!r} (atol "
+          f"{TRAIN_WEIGHT_ATOL}), calib |d| {c_err!r} (atol "
+          f"{TRAIN_CALIB_ATOL})", flush=True)
+    if len(lc) != 300 or not np.all(np.isfinite(lc)):
+        fail("the card's trainer did not take 300 finite steps")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and w_err <= TRAIN_WEIGHT_ATOL
+            and c_err <= TRAIN_CALIB_ATOL):
+        fail("the card's trainer departs from the CPU trainer")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = embedding.save_params(params["cuda"], Path(tmp) / "w.npz")
+        back = embedding.load_params(path, device=dev)
+        if not all(torch.equal(back[k], params["cuda"][k]) for k in back):
+            fail("the trained weights did not read back as written")
+        st = dataclasses.replace(state_at_gate)
+        kept, t_gate = timed(lambda: auto_lc.descriptor_gate(
+            st, gated_pairs, threshold, None, weights_path=path))
+    c = st._descriptor_gate_choice
+    kept_s, choice_s = shipped
+    print(f"  descriptor gate with the trained weights: self-check picked "
+          f"{c['scorer']!r} (AUC embedding {c['auc_emb']!r}, hand "
+          f"{c['auc_hand']!r}), kept {len(kept)} of {len(gated_pairs)} in "
+          f"{t_gate!r} s; with the shipped weights {choice_s!r} kept "
+          f"{len(kept_s)}; same set: {kept == kept_s}", flush=True)
+
+
 def main():
     if not (ROOT / "nautilus_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1493,7 +1792,7 @@ def main():
 
     # -- 1. environment ------------------------------------------------------
     t_all = time.perf_counter()
-    print("[1/14] environment", flush=True)
+    print("[1/16] environment", flush=True)
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
     from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
@@ -1516,7 +1815,7 @@ def main():
         return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    print("[2/14] build: one nvcc per kernel source, started together",
+    print("[2/16] build: one nvcc per kernel source, started together",
           flush=True)
     sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
     t0 = time.perf_counter()
@@ -1531,7 +1830,7 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    print(f"[3/14] fused coarse kernel against plain (bench shapes at C=8 and "
+    print(f"[3/16] fused coarse kernel against plain (bench shapes at C=8 and "
           f"at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
           f"gdc_2020 range)", flush=True)
     cases = [kernel_case(dev, scan_range=30.0),
@@ -1540,7 +1839,7 @@ def main():
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    print(f"[4/14] correlation kernel against plain (the pair engine's batch "
+    print(f"[4/16] correlation kernel against plain (the pair engine's batch "
           f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
           f"table in global memory)", flush=True)
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
@@ -1551,7 +1850,7 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    print("[5/14] small-input reference: card vs CPU", flush=True)
+    print("[5/16] small-input reference: card vs CPU", flush=True)
     small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -1561,7 +1860,7 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    print("[6/14] main path: make_problem(1000, building, 720 beams, seed 1) "
+    print("[6/16] main path: make_problem(1000, building, 720 beams, seed 1) "
           "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses",
           flush=True)
     from nautilus_tpu_torch.core.luaconf import load_config
@@ -1632,7 +1931,7 @@ def main():
     system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    print("[7/14] pair engine: bench.py's CSM leg, then the main path's gated "
+    print("[7/16] pair engine: bench.py's CSM leg, then the main path's gated "
           "pairs through engine='pair' against engine='stage'", flush=True)
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
@@ -1678,13 +1977,16 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    print(f"[8/14] HITL: bench.py's scripted constraint (lines "
+    print(f"[8/16] HITL: bench.py's scripted constraint (lines "
           f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map",
           flush=True)
     from nautilus_tpu_torch.cli import apply_hitl_line
     from nautilus_tpu_torch.solve.hitl import hitl_cost
 
     zero_counts()
+    # Phase 15 sends the same message through the bridge on this closed map.
+    closed = dataclasses.replace(
+        fresh_state(state, sol), lc_factors=list(state.lc_factors))
     solver.config = cfg.replace(hitl_line_width=HITL_WIDTH)
     hitl_costs = []
     solve_slam = solver.solve_slam
@@ -1733,14 +2035,14 @@ def main():
              f"({cost_start} -> {hitl_costs[0]})")
 
     # -- 9. bag path ------------------------------------------------------------
-    print("[9/14] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+    print("[9/16] bag path: bench.py's GDC-scale bag (1000 poses, building, "
           "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
           "--write --vectorize and auto_lc=true", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         bag_path_phase(Path(tmp), zero_counts, read_counts)
 
     # -- 10. CR backend -----------------------------------------------------------
-    print("[10/14] CR backend: make_problem(5000, building, 720 beams, seed 1) "
+    print("[10/16] CR backend: make_problem(5000, building, 720 beams, seed 1) "
           "-> solve_slam, then scan against CR at N=1000 and N=5000",
           flush=True)
     solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
@@ -1750,7 +2052,7 @@ def main():
     del solver_5000
 
     # -- 11. dense fallback -----------------------------------------------------
-    print(f"[11/14] dense fallback: phase 6's input with lr_factor_cap="
+    print(f"[11/16] dense fallback: phase 6's input with lr_factor_cap="
           f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
           "on dense Cholesky; then the gate's dense engine against its band "
           "engine", flush=True)
@@ -1760,29 +2062,46 @@ def main():
                                    read_counts)
 
     # -- 12. the other routes ---------------------------------------------------
-    print("[12/14] other routes on the same input: dense sweep, CG on the "
+    print("[12/16] other routes on the same input: dense sweep, CG on the "
           "closed graph, float64 from make_problem to the closed map",
           flush=True)
     phase12 = other_routes_phase(cfg, state, x0, gt, stats, phase11, dev,
                                  zero_counts, read_counts)
 
     # -- 13. the small routes ---------------------------------------------------
-    print("[13/14] small routes at the main path's width: optimization type "
+    print("[13/16] small routes at the main path's width: optimization type "
           "ALL, Hough normals, the descriptor gate on phase 6's gated pairs",
           flush=True)
     zero_counts()
     all_route_phase(cfg, dev, state, x0)
     hough_phase(state)
-    descriptor_gate_phase(cfg, fresh_state(state, x_solved),
-                          list(report.gated_pairs), read_counts)
+    shipped_gate = descriptor_gate_phase(cfg, fresh_state(state, x_solved),
+                                         list(report.gated_pairs),
+                                         read_counts)
 
     # -- 14. the mesh ---------------------------------------------------------
-    print(f"[14/14] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
+    print(f"[14/16] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
           "one card, the sharded CSM batch against phase 7's pair engine, "
           "--devices 2 through the CLI", flush=True)
     phase6["stats"] = stats
     mesh_launches = sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate,
                                   (s_pr, tr_pr, best_pr), zero_counts)
+
+    # -- 15. the visualizer, the bridge, the library calls ---------------------
+    print("[15/16] the visualizer and the ROS command bridge on phase 6's "
+          "input, best_scan_match and csm_match_grouped on its gated pairs, "
+          "the device busy share of its solve and auto-LC", flush=True)
+    zero_counts()
+    library_launches, busy = visualizer_phase(
+        cfg, state, x0, stats, {"solve": t_solve, "auto-LC": t_lc}, closed,
+        (first, second), at_gate, list(report.gated_pairs), zero_counts,
+        read_counts)
+
+    # -- 16. the trainer ------------------------------------------------------
+    print("[16/16] the trainer: train(300 steps, seed 0) on the card against "
+          "the CPU, then the descriptor gate with its weights", flush=True)
+    trainer_phase(dev, fresh_state(state, x_solved), list(report.gated_pairs),
+                  float(cfg.get("lc_match_threshold", 0.5)), shipped_gate)
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")
@@ -1813,7 +2132,8 @@ def main():
                "nautilus_tpu/kernels/csm_pallas.py:43",
                pair_counts["correlate"], corr_err, corr_shape,
                "HBM bytes at 3.35 TB/s",
-               launches_sharded_per_rank=mesh_launches)]}))
+               launches_sharded_per_rank=mesh_launches,
+               launches_library_calls=library_launches)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

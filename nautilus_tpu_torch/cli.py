@@ -23,13 +23,18 @@ Curation commands:
 ``--devices N`` (or the config key ``mesh_devices``) with N > 1 spreads the
 solve and auto-LC's CSM batch over a mesh of N ranks on the run's device
 (parallel/sharded.py); N may not exceed the visible cards (cores with
-``--device cpu``).  ``--ros`` returns 1: the port has no ROS bridge.
+``--device cpu``).
+
+``--ros`` publishes the solver's progress on the reference's rviz topics
+(viz/visualizer.RosBridgeVisualizer) and, once the solve, auto-LC and the
+one-shot commands are done, subscribes to ``hitl_lc_topic``,
+/write_output and /vectorize_output (viz/bridge.RosInputBridge) and spins.
+Where rospy does not import it returns 1.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
 import sys
 import time
@@ -157,7 +162,9 @@ def run(argv=None):
                     help="ranks of the factor-parallel mesh (overrides the "
                          "config key mesh_devices)")
     ap.add_argument("--ros", action="store_true",
-                    help="ROS visualization and input (not in the port)")
+                    help="publish to rviz and subscribe to the reference's "
+                         "command topics (hitl_lc_topic, /write_output, "
+                         "/vectorize_output) via rospy, then spin")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     verbose = not args.quiet
@@ -171,12 +178,13 @@ def run(argv=None):
     if not args.synthetic and not cfg.bag_path:
         print("Must specify an input bag!")
         return 1, None, walls
+    visualizer = None
     if args.ros:
-        if importlib.util.find_spec("rospy") is None:
+        from nautilus_tpu_torch.viz.visualizer import RosBridgeVisualizer
+        visualizer = RosBridgeVisualizer()
+        if not visualizer.available:
             print("--ros requested but rospy is not importable.")
-        else:
-            print("--ros requested but the PyTorch port has no ROS bridge.")
-        return 1, None, walls
+            return 1, None, walls
     device = default_device(args.device)
     # --devices overrides mesh_devices; N > 1 spreads the solve and the CSM
     # batch over N ranks on the run's device.
@@ -195,7 +203,7 @@ def run(argv=None):
             print(f"Sharding the solve over {n_mesh} devices "
                   f"({device.type}).")
     try:
-        return _run(args, cfg, device, mesh, walls, verbose)
+        return _run(args, cfg, device, mesh, visualizer, walls, verbose)
     finally:
         if mesh is not None:
             mesh.close()
@@ -209,7 +217,7 @@ def _visible_devices(device) -> int:
         else (os.cpu_count() or 1)
 
 
-def _run(args, cfg, device, mesh, walls, verbose):
+def _run(args, cfg, device, mesh, visualizer, walls, verbose):
     from nautilus_tpu_torch.io.poses import load_solution, write_poses
     from nautilus_tpu_torch.io.vectorize import vectorize
     from nautilus_tpu_torch.solve.solver import Solver
@@ -220,7 +228,7 @@ def _run(args, cfg, device, mesh, walls, verbose):
             print("Loading solution poses.")
         load_solution(state, args.solution_poses, verbose=verbose)
 
-    solver = Solver(state, cfg,
+    solver = Solver(state, cfg, visualizer=visualizer,
                     linear_solver=cfg.get("linear_solver", "auto"),
                     assembly=cfg.get("assembly", None) or None, mesh=mesh)
     t0 = time.perf_counter()
@@ -254,6 +262,12 @@ def _run(args, cfg, device, mesh, walls, verbose):
         t0 = time.perf_counter()
         vectorize(state, cfg.map_output_file, verbose=verbose)
         walls["vectorize"] = time.perf_counter() - t0
+    if args.ros:
+        from nautilus_tpu_torch.viz.bridge import RosInputBridge
+        bridge = RosInputBridge(solver, cfg, verbose=verbose)
+        bridge.start()
+        bridge.spin()
+        return 0, solver, walls
     if args.interactive:
         _interactive(solver, cfg, verbose)
     return 0, solver, walls

@@ -1,7 +1,7 @@
 """Correlative scan matching (CSM), the stage-major and pair-major engines
 (port of nautilus_tpu/kernels/csm.py: CSMParams, build_tables,
 _match_chunk_sm, _search_stage, csm_match_to_tables, csm_match,
-csm_match_batch, csm_match_pairs).
+csm_match_batch, csm_match_pairs, csm_match_grouped).
 
 For each (source, target) pair:
 
@@ -438,3 +438,37 @@ def csm_match_pairs(points, masks, src_idx, tgt_idx,
         transforms.append(tr)
     return (torch.cat(scores).cpu().numpy().astype(np.float32),
             torch.cat(transforms).cpu().numpy().astype(np.float32))
+
+
+def csm_match_grouped(points, masks, src_idx, tgt_idx,
+                      params: CSMParams = CSMParams()):
+    """Match a (source, target) pair list grouped by target: one table
+    build per unique target, then the pair engine over that target's
+    sources, PAIR_BATCH per correlation kernel launch.  Rotation searches
+    are centred on 0.
+
+    points [N, P, 2] / masks [N, P] tensors; src_idx, tgt_idx host int
+    arrays.  Returns host arrays (scores [Q] float32, transforms [Q, 3]
+    float32) in the input's pair order."""
+    src_idx = np.asarray(src_idx, np.int64)
+    tgt_idx = np.asarray(tgt_idx, np.int64)
+    q = len(src_idx)
+    scores = np.zeros(q, np.float32)
+    transforms = np.zeros((q, 3), np.float32)
+    dev = points.device
+    points = points.float()
+    for t in np.unique(tgt_idx):
+        rows = np.nonzero(tgt_idx == t)[0]
+        table_lo, tgt_points = build_tables(points[int(t)][None],
+                                            masks[int(t)][None], params)
+        for c0 in range(0, len(rows), PAIR_BATCH):
+            part = rows[c0:c0 + PAIR_BATCH]
+            b = len(part)
+            ss = torch.as_tensor(src_idx[part], device=dev)
+            s, tr = _match_to_tables_batch(
+                table_lo.expand(b, -1, -1), tgt_points.expand(b, -1, -1),
+                points[ss], masks[ss],
+                torch.zeros(b, dtype=torch.float32, device=dev), params)
+            scores[part] = s.cpu().numpy()
+            transforms[part] = tr.cpu().numpy()
+    return scores, transforms

@@ -16,7 +16,11 @@
 
 ``apply=False`` stops after scoring (diagnostic only).  When the config key
 ``lc_debug_output_dir`` names an existing directory, every scored pair is
-drawn into it (raw and aligned overlay).
+drawn into it (raw and aligned overlay).  A solver's visualizer is shown the
+candidate scans and the gated pairs' covariances.
+
+``best_scan_match`` is the reference's BestScanMatch: the best-scoring of a
+list of scans for one source, on the pair engine.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
-from nautilus_tpu_torch.kernels.csm import (CSMParams, csm_match_pairs,
-                                            wrap_angle)
+from nautilus_tpu_torch.kernels.csm import (CSMParams, csm_match_batch,
+                                            csm_match_pairs, wrap_angle)
 from nautilus_tpu_torch.loop_closure.candidate import get_lc_candidates
 from nautilus_tpu_torch.loop_closure.matcher import LCMatcher
 
@@ -109,6 +114,29 @@ def _dump_pair_image(state, s: int, t: int, transform: np.ndarray,
     plt.close(fig)
 
 
+def best_scan_match(state, source: int, scans,
+                    params: CSMParams = CSMParams()):
+    """The best scan match for ``source`` among ``scans`` (itself left
+    out), each search centred on the solution-implied relative heading.
+    Returns (best score, best scan index, [tx, ty, theta]); (-inf, -1,
+    zeros) when no other scan is given."""
+    scans = [int(s) for s in scans if s != source]
+    if not scans:
+        return float("-inf"), -1, np.zeros(3)
+    pts, msk = state.problem.points, state.problem.points_mask
+    tt = np.asarray(scans, np.int64)
+    centers = wrap_angle(state.solution[source, 2] - state.solution[tt, 2])
+    ss = torch.full((len(scans),), source, device=pts.device)
+    tt_dev = torch.as_tensor(tt, device=pts.device)
+    scores, transforms = csm_match_batch(
+        pts[ss], msk[ss], pts[tt_dev], msk[tt_dev], params,
+        rotation_centers=torch.as_tensor(centers.astype(np.float32),
+                                         device=pts.device))
+    scores = scores.cpu().numpy()
+    k = int(np.argmax(scores))
+    return float(scores[k]), scans[k], transforms[k].cpu().numpy()
+
+
 def scorer_self_check(state, score_fn, n_probe: int = 12,
                       far_frac: float = 0.6):
     """AUC of ``score_fn`` on pairs whose label this map already knows.
@@ -159,9 +187,11 @@ def scorer_self_check(state, score_fn, n_probe: int = 12,
 
 
 def descriptor_gate(state, pairs, threshold: float,
-                    use_learned_embedding: bool = None):
+                    use_learned_embedding: bool = None, weights_path=None):
     """The pairs whose scan-descriptor similarity reaches ``threshold``
-    (config lc_match_threshold).
+    (config lc_match_threshold).  weights_path: the embedding's weights
+    file (default: the package's shipped weights), e.g. one that
+    ``python -m nautilus_tpu_torch.loop_closure.embedding --out`` wrote.
 
     use_learned_embedding (config lc_use_learned_embedding) True or False
     forces the scorer.  On None, with the weights file present, both
@@ -175,11 +205,12 @@ def descriptor_gate(state, pairs, threshold: float,
     msk = state.problem.points_mask
     params = None
     if use_learned_embedding is None or use_learned_embedding:
-        params = embedding.load_params(device=pts.device, dtype=pts.dtype)
+        params = embedding.load_params(weights_path, device=pts.device,
+                                       dtype=pts.dtype)
         if params is None and use_learned_embedding:
             raise FileNotFoundError(
                 f"lc_use_learned_embedding=true but no weights at "
-                f"{embedding.default_weights_path()}")
+                f"{weights_path or embedding.default_weights_path()}")
     if not pairs:
         return []
     emb_score = (lambda s, t: embedding.embedding_match_score(
@@ -268,6 +299,8 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     report.stage_walls["candidates"] = time.perf_counter() - t0
     if verbose:
         print(f"Auto-LC: {len(candidates)} candidate scans.")
+    if solver.visualizer is not None:
+        solver.visualizer.draw_scans(state, candidates)
     if len(candidates) < 2:
         return report
 
@@ -294,6 +327,10 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     if verbose:
         print(f"Auto-LC: {len(report.gated_pairs)} pairs pass the "
               f"chi-square gate.")
+    if solver.visualizer is not None and report.gated_pairs:
+        solver.visualizer.draw_covariances(
+            [(t, matcher.chi_square_score(s, t)[0])
+             for s, t in report.gated_pairs])
     if use_descriptor_gate and report.gated_pairs:
         report.gated_pairs = descriptor_gate(
             state, report.gated_pairs,

@@ -15,44 +15,57 @@ import math
 
 import torch
 
+from nautilus_tpu_torch.core.preprocess import _fma, _sqrt, _sum_fixed
+
 RANGE_BINS = 16
 THETA_BINS = 64
 
 
 def normalize_cloud(points, mask, range_scale: float):
-    """Mean-centre over the valid points, then divide by range_scale."""
+    """Mean-centre over the valid points, then scale by 1 / range_scale
+    (points [..., P, 2], mask [..., P]).  The mean sums in the JAX CPU
+    backend's order and the scale is a multiply by the float32 reciprocal,
+    as the JAX package's compiled descriptor computes it, so the centred
+    points have its bits on every device."""
     w = mask.to(points.dtype)
-    n = torch.clamp(torch.sum(w), min=1.0)
-    mean = torch.sum(points * w[:, None], dim=0) / n
-    return (points - mean) / _scalar(range_scale, points)
+    n = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+    mean = _sum_fixed((points * w[..., None]).transpose(-1, -2)) / n[..., None]
+    return (points - mean[..., None, :]) * _scalar(1.0 / range_scale, points)
 
 
 def _scalar(value: float, like):
-    """``value`` as a 0-dim tensor beside ``like``: dividing by a Python
-    float becomes a multiply by its reciprocal on CUDA, which can move a
-    point on a bin edge."""
+    """``value`` as a 0-dim tensor of ``like``'s dtype and device, so that
+    CPU and CUDA round the same product or quotient."""
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def scan_descriptor(points, mask, range_scale: float = 10.0):
-    """[RANGE_BINS, THETA_BINS] L2-normalized polar occupancy histogram of
-    one scan: points [P, 2], mask [P].
+    """[..., RANGE_BINS, THETA_BINS] L2-normalized polar occupancy
+    histograms of scans: points [..., P, 2], mask [..., P].
 
-    A point whose angle lies within rounding of a bin edge (the +-pi seam
-    included) may fall in the neighbouring bin on another backend; that
-    moves one vote."""
+    The bins are computed alike on every device, and as the JAX package's
+    compiled descriptor computes them: the range as sqrt(fma(y, y, x*x)),
+    correctly rounded; the angle bin as (theta + pi) * float32(1 / 2pi) *
+    THETA_BINS.  The angle itself is computed in float64 and rounded; a
+    point whose angle lies within an ulp of a bin edge may still fall in
+    the neighbouring bin of the JAX package's float32 angle, which moves
+    one vote."""
     dtype = points.dtype
+    batch = points.shape[:-2]
     p = normalize_cloud(points, mask, range_scale)
-    r = torch.linalg.vector_norm(p, dim=-1)
-    th = torch.atan2(p[:, 1], p[:, 0])
+    x, y = p[..., 0], p[..., 1]
+    r = _sqrt(_fma(y, y, x * x))
+    th = torch.atan2(y.double(), x.double()).to(dtype)
     ri = torch.clamp((r * RANGE_BINS).to(torch.int64), 0, RANGE_BINS - 1)
-    ti = torch.clamp(((th + math.pi) / _scalar(2 * math.pi, th) * THETA_BINS)
+    ti = torch.clamp(((th + math.pi) * _scalar(0.5 / math.pi, th) * THETA_BINS)
                      .to(torch.int64), 0, THETA_BINS - 1)
-    hist = torch.zeros((RANGE_BINS * THETA_BINS,), dtype=dtype,
+    flat = (ri * THETA_BINS + ti).reshape(-1, ri.shape[-1])
+    hist = torch.zeros((flat.shape[0], RANGE_BINS * THETA_BINS), dtype=dtype,
                        device=points.device)
-    hist.index_add_(0, ri * THETA_BINS + ti, mask.to(dtype))
-    hist = hist.reshape(RANGE_BINS, THETA_BINS)
-    return hist / torch.sqrt(torch.clamp(torch.sum(hist * hist), min=1e-12))
+    hist.scatter_add_(1, flat, mask.to(dtype).reshape(flat.shape))
+    hist = hist.reshape(*batch, RANGE_BINS, THETA_BINS)
+    norm = torch.sum(hist * hist, dim=(-2, -1), keepdim=True)
+    return hist / torch.sqrt(torch.clamp(norm, min=1e-12))
 
 
 def match_score(points_a, mask_a, points_b, mask_b) -> torch.Tensor:
@@ -90,3 +103,13 @@ def local_uncertainty(points, mask, normals):
     lam_min = torch.clamp(0.5 * (tr - disc), min=1e-12)
     n = torch.clamp(torch.sum(w, dim=-1), min=1.0)
     return lam_max / lam_min, 1.0 / torch.sqrt(lam_min / n)
+
+
+def passes_uncertainty_filter(points, mask, normals, config) -> bool:
+    """Keyframe gate of one scan (points/normals [P, 2], mask [P]):
+    condition below local_uncertainty_condition_threshold and scale below
+    local_uncertainty_scale_threshold."""
+    cond, scale = local_uncertainty(points[None], mask[None], normals[None])
+    cond_max = float(config.local_uncertainty_condition_threshold)
+    scale_max = float(config.local_uncertainty_scale_threshold)
+    return float(cond[0]) < cond_max and float(scale[0]) < scale_max

@@ -123,8 +123,11 @@ def _solve_damped(H, g, fixed_dof, radius, params: LMParams):
 
 
 def lm_loop(x0, assemble_fn, cost_fn, fixed_dof,
-            params: LMParams = LMParams()) -> LMResult:
-    """Dense LM loop: assemble_fn(x) -> (H, g, cost), cost_fn(x) -> cost."""
+            params: LMParams = LMParams(),
+            iteration_callback=None) -> LMResult:
+    """Dense LM loop: assemble_fn(x) -> (H, g, cost), cost_fn(x) -> cost.
+    iteration_callback(x, cost, iteration), when given, runs after every
+    step, accepted or not, with the current x and cost."""
     H, g, cost = assemble_fn(x0)
     cost0 = cost
     x = x0
@@ -150,6 +153,8 @@ def lm_loop(x0, assemble_fn, cost_fn, fixed_dof,
             H, g, cost = assemble_fn(x)
         it += 1
         done = converged or not radius_ok
+        if iteration_callback is not None:
+            iteration_callback(x, cost, it)
     return LMResult(x=x, cost=float(cost), initial_cost=float(cost0),
                     iterations=it, converged=converged)
 
@@ -161,11 +166,21 @@ def lm_solve(x0, graph, fixed_dof, params: LMParams = LMParams(),
     fixed_dof: [3M] bool, the gauge-fixed dofs.  layout: optional
     factors.BandLayout for the scatter-free assembly of the correspondence
     blocks (needs the delta-major pair order)."""
+    return lm_solve_stepped(x0, graph, fixed_dof, params, layout=layout)
+
+
+def lm_solve_stepped(x0, graph, fixed_dof, params: LMParams = LMParams(),
+                     iteration_callback=None, layout=None) -> LMResult:
+    """lm_solve calling iteration_callback(x, cost, iteration) after every
+    LM step: the reference's per-iteration redraw, the same steps as
+    lm_solve.  A callback that reads x on the host makes it a debugging
+    mode."""
     return lm_loop(
         x0,
         assemble_fn=lambda x: assemble_normal_equations(x, graph, layout),
         cost_fn=lambda x: total_cost(x, graph),
-        fixed_dof=fixed_dof, params=params)
+        fixed_dof=fixed_dof, params=params,
+        iteration_callback=iteration_callback)
 
 
 def fixed_pose_mask(num_dofs: int, fixed_pose: int = 0,

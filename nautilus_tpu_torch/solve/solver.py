@@ -14,6 +14,13 @@ slice of the factor lists and the controller sums them, on the band when
 the resolved solver is "band" and densely otherwise ("cg" included: it has
 no sharded engine in the JAX package either).
 
+With a ``visualizer`` (viz/visualizer.py) the solver draws where the JAX
+package's does: solve_slam draws the initial solution, then after each
+window its solution and its planar and edge correspondences (over a mesh,
+once at the end); solve_max_window draws its solution.
+``per_iteration_viz`` also redraws after every LM step of the sweep, which
+then runs on the dense route (lm_solve_stepped).
+
 The dof vector is [solution; line_poses]: N node poses, then one free line
 pose per HITL constraint (L of them, no padding).  Pose 0 is the gauge.
 Solver state has the dtype of the problem's clouds (float32, or float64
@@ -45,7 +52,7 @@ from nautilus_tpu_torch.solve.factors import (BandLayout, Correspondences,
                                               FactorGraph, HitlFactors,
                                               OdomFactors, make_odom_factors)
 from nautilus_tpu_torch.solve.lm import (LMParams, LMResult, lm_solve,
-                                         lm_solve_banded)
+                                         lm_solve_banded, lm_solve_stepped)
 
 
 @dataclasses.dataclass
@@ -106,17 +113,26 @@ class Solver:
     # TPU; kept for parity, not measured on the H100.
     DENSE_MAX_NODES = 8000
 
-    def __init__(self, state: SLAMState, config,
+    def __init__(self, state: SLAMState, config, visualizer=None,
                  lm_params: Optional[LMParams] = None,
                  linear_solver: str = "auto",
                  use_normal_gate: bool = False,
+                 per_iteration_viz: bool = False,
                  assembly: Optional[str] = None,
                  mesh=None):
-        """linear_solver: 'band', 'dense', 'cg', or 'auto' (band when
+        """visualizer: a viz.visualizer.SolverVisualizer the solves and
+        auto-LC draw to (None: no drawing, and nothing copied for it).
+
+        linear_solver: 'band', 'dense', 'cg', or 'auto' (band when
         eligible, else dense up to DENSE_MAX_NODES nodes, else cg).
 
         use_normal_gate: match a feature only to targets whose normal lies
         within 20 degrees of its own.
+
+        per_iteration_viz: with a visualizer, redraw after every LM step of
+        solve_slam's windows (the reference's per-iteration redraw); those
+        windows then solve on the dense route, one host read of x per step.
+        Without a visualizer it changes nothing.
 
         assembly: 'moments' or None for the moment-form band assembly (J^T J
         and J^T r from per-point scalar sums, J never formed), 'jacobian'
@@ -135,6 +151,9 @@ class Solver:
                              f"{assembly!r}")
         self.state = state
         self.config = config
+        self.visualizer = visualizer
+        self.per_iteration_viz = per_iteration_viz and visualizer is not None
+        self._viz_window = None
         self.device = state.problem.device
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh runs on {mesh.device}, the problem "
@@ -284,17 +303,31 @@ class Solver:
     # -- solving ------------------------------------------------------------
 
     def _solve_windows(self, w_min: int, w_max: int,
-                       optimization_type: str = "feature") -> SolveStats:
+                       optimization_type: str = "feature",
+                       sweep: bool = True) -> SolveStats:
+        """Solve windows w_min..w_max; ``sweep`` (solve_slam) draws the
+        initial solution and each window's correspondences and steps with
+        per_iteration_viz, as the JAX package's sweep does."""
         kind = self.last_solver = self._resolve_solver()
+        vis = self.visualizer
+        stepped = sweep and self.per_iteration_viz
         if self.mesh is not None:
-            if optimization_type == "feature":
-                return self._solve_sharded(kind, w_min, w_max)
-            warnings.warn("mesh set but optimization type 'all' runs on the "
-                          "single-device path; running single-device",
+            if optimization_type == "feature" and not stepped:
+                stats = self._solve_sharded(kind, w_min, w_max)
+                if vis is not None:
+                    vis.draw_solution(self.state, window=w_max)
+                return stats
+            warnings.warn("mesh set but the requested mode needs the "
+                          "single-device path (optimization type 'all' or "
+                          "per-iteration viz); running single-device",
                           stacklevel=3)
+        if stepped and kind == "band":
+            kind = self.last_solver = "dense"
         stats = SolveStats()
         x = self._current_x()
         fixed = self._fixed_mask()
+        if sweep and vis is not None:
+            vis.draw_solution(self.state)
         # The band solves the long-range closures as Woodbury columns; dense
         # and CG hold them in the odometry batch.
         odom = self._odom_factors(exclude_long_range=kind == "band")
@@ -320,6 +353,11 @@ class Solver:
                 res = lm_solve_cg(x, graph, fixed, params=self.lm_params,
                                   band_graph=bg,
                                   layout=None if bg is None else self._layout)
+            elif stepped:
+                self._viz_window = window
+                res = lm_solve_stepped(x, graph, fixed, params=self.lm_params,
+                                       iteration_callback=self._iteration_viz,
+                                       layout=self._layout)
             else:
                 res = lm_solve(x, graph, fixed, params=self.lm_params,
                                layout=self._layout)
@@ -333,8 +371,20 @@ class Solver:
                 final_cost=res.cost, iterations=res.iterations,
                 wall_s=time.perf_counter() - t0,
                 inner_iterations=res.inner_iterations))
+            if vis is not None:
+                self._writeback(x)
+                vis.draw_solution(self.state, window=window)
+                if sweep:
+                    vis.draw_correspondence(graph.planar)
+                    vis.draw_correspondence(graph.edge)
         self._writeback(x)
         return stats
+
+    def _iteration_viz(self, x, cost, iteration):
+        """lm_solve_stepped's callback: redraw after one LM step."""
+        del cost, iteration
+        self._writeback(x)
+        self.visualizer.draw_solution(self.state, window=self._viz_window)
 
     def _solve_sharded(self, kind: str, w_min: int, w_max: int) -> SolveStats:
         """The sweep over self.mesh (parallel.sharded.sharded_sweep): band
@@ -376,7 +426,7 @@ class Solver:
         """One solve at the max window size (after loop closures are
         injected)."""
         w = self.config.get_int("lidar_constraint_amount_max")
-        return self._solve_windows(w, w, optimization_type)
+        return self._solve_windows(w, w, optimization_type, sweep=False)
 
     def _writeback(self, x):
         host = x.detach().cpu().numpy().astype(np.float64)

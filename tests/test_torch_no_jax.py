@@ -122,6 +122,84 @@ def test_bag_path_runs_with_jax_blocked(tmp_path):
     assert out.stdout.strip().startswith("ok")
 
 
+TRAINER_AND_VIZ = """
+import sys
+sys.modules["jax"] = None                 # any jax import now fails
+sys.modules["nautilus_tpu"] = None        # and so does the JAX package's
+sys.path.insert(0, {root!r})
+from pathlib import Path
+import numpy as np
+import torch
+from nautilus_tpu_torch.core.luaconf import load_config
+from nautilus_tpu_torch.ingest.synthetic import make_problem
+from nautilus_tpu_torch.kernels.csm import CSMParams, csm_match_grouped
+from nautilus_tpu_torch.loop_closure import embedding, keyframes
+from nautilus_tpu_torch.loop_closure.auto_lc import (best_scan_match,
+                                                     solve_auto_lc)
+from nautilus_tpu_torch.loop_closure.learned import passes_uncertainty_filter
+from nautilus_tpu_torch.solve.solver import Solver
+from nautilus_tpu_torch.utils import polynomial, timer
+from nautilus_tpu_torch.viz import ros_encode
+from nautilus_tpu_torch.viz.bridge import RosInputBridge
+from nautilus_tpu_torch.viz.visualizer import (RosBridgeVisualizer,
+                                               SnapshotVisualizer)
+tmp = Path({tmp!r})
+embedding.main(["--steps", "2", "--out", str(tmp / "w.npz"), "--device",
+                "cpu"])
+assert set(embedding.load_params(tmp / "w.npz")) == {{"w1", "b1", "w2", "b2",
+                                                      "calib"}}
+cfg = load_config({cfg!r}).replace(
+    lidar_constraint_amount_max=2, pose_output_file=str(tmp / "poses.txt"),
+    map_output_file=str(tmp / "map.csv"))
+state, _ = make_problem(8, "room", num_beams=180, seed=0, device="cpu")
+vis = SnapshotVisualizer(record_clouds=False)
+solver = Solver(state, cfg, visualizer=vis, per_iteration_viz=True)
+stats = solver.solve_slam()
+assert len(vis.snapshots) == 1 + 2 + sum(w.iterations for w in stats.windows)
+solve_auto_lc(solver, apply=False, verbose=False)
+assert vis.lc_scans
+bridge = RosInputBridge(solver, cfg, verbose=False)
+bridge.dispatch("/hitl_slam_input", ros_encode.encode_hitl_input(
+    (-5, -5), (5, -5), (-5, 5), (5, 5)))
+bridge.dispatch("/write_output", ros_encode.encode_write_msg())
+bridge.dispatch("/vectorize_output", ros_encode.encode_write_msg())
+assert (tmp / "poses.txt").exists() and (tmp / "map.csv").exists()
+assert not RosBridgeVisualizer().available
+kf = keyframes.select_keyframes(state, cfg)
+assert kf.any() and keyframes.keyframe_pairs(kf, 1) is not None
+p = state.problem
+assert isinstance(passes_uncertainty_filter(p.points[0], p.points_mask[0],
+                                            p.normals[0], cfg), bool)
+params = CSMParams(scan_range=6.0)
+score, best, _ = best_scan_match(state, 0, [1, 2], params)
+assert best in (1, 2) and np.isfinite(score)
+scores, _ = csm_match_grouped(p.points, p.points_mask, [1, 2], [0, 0], params)
+assert np.all(np.isfinite(scores))
+assert polynomial.solve_quadratic(1.0, -3.0, 2.0) == [1.0, 2.0]
+with timer.profile_to(tmp / "prof"):
+    with timer.device_trace("span"):
+        torch.ones(4) + 1
+assert (tmp / "prof" / timer.TRACE_FILE).exists()
+bad = [m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "nautilus_tpu"))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_trainer_visualizer_and_bridge_run_with_jax_blocked(tmp_path):
+    """This slice's modules: the trainer's main for a few steps, the
+    visualizer, the bridge, keyframes, the library scan matches, the timers
+    and the polynomial roots."""
+    code = TRAINER_AND_VIZ.format(
+        root=str(ROOT), tmp=str(tmp_path),
+        cfg=str(ROOT / "config" / "default_config.lua"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_native_build_compiles_the_ports_own_source(tmp_path):
     from nautilus_tpu_torch.ingest import native
     assert native.SOURCE == PACKAGE / "native" / "bagreader.cc"
