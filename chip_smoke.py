@@ -65,9 +65,10 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 13. the small routes at the main path's width: optimization type ALL
    through solve_slam on phase 6's input (1000 poses, 720 beams, chunks of
    64 pairs), then on a 200-pose building at 720 beams against the CPU (per
-   window final costs and poses); Hough normals on phase 6's scans against
-   the CPU and against the PCA normals; and the descriptor gate on phase
-   6's gated pairs, card against CPU;
+   window final costs and poses), then the same comparison on phase 6's
+   input cut to windows 1-3 (the whole sweep takes minutes of CPU); Hough
+   normals on phase 6's scans against the CPU and against the PCA normals;
+   and the descriptor gate on phase 6's gated pairs, card against CPU;
 14. the mesh (parallel/sharded.py): phase 6's path (solve_slam ->
    solve_auto_lc(apply=True)) over meshes of 1, 2 and 4 ranks, all on the
    one card, each held to phase 6 (22/49/27, final cost, closed ATE), with
@@ -88,9 +89,22 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    torch.profiler trace (utils/timer.profile_to) of each;
 16. the trainer: the embedding's train(300 steps, seed 0) on the card and
    on the CPU (losses per step, weights, calibration), walls and steps/s,
-   then phase 13's descriptor gate with the weights it wrote and read back.
+   then phase 13's descriptor gate with the weights it wrote and read back;
+17. the referee (nautilus_tpu_torch/baseline, numpy/scipy float64 on the
+   host CPU, sharing no code with the solver or the kernels): phase 6's
+   input solved from phase 6's x0 by the referee's growing-window
+   Levenberg-Marquardt, and phase 6's band, phase 12's dense and float64
+   sweeps scored under its cost (each within 1e-4 of the referee's own
+   solution's, inside the JAX package's 1 % bar, where x0 and the
+   referee's window-9 solution must lie outside 1e-4), with walls and ATE;
+   phase 5's 32-pose HITL step on the card against the referee's
+   hitl_callback (the same bars);
+   the CPU scan-match twin against the stage engine (fused coarse kernel)
+   and the pair engine (correlation kernel) on bench.py's 4 CPU-leg pairs
+   and 8 gated pairs (scores within 2e-3, transforms within 2e-2 and the
+   finest grid step), counting both kernels' launches.
 
-Each path (6 to 16) starts with every launch count at 0 and reads them
+Each path (6 to 17) starts with every launch count at 0 and reads them
 when it ends.  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
@@ -99,7 +113,9 @@ largest error over every case).
 """
 
 import dataclasses
+import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -163,9 +179,13 @@ MESH_ATE_ATOL = 1e-3
 LR_CAP = 8
 # Phase 13.  Optimization type ALL: the card's per-window final costs and
 # poses against the CPU's on a building of ALL_CPU_POSES poses at the main
-# path's beam count (the CPU needs minutes for the 1000 poses the card
-# sweeps).  Hough normals, card against CPU on the main path's scans: where
-# the winning bin is the same the normals agree within HOUGH_ATOL, as
+# path's beam count, all windows, and on the main path's input (1000 poses)
+# through its first ALL_CPU_WINDOWS windows: a window of that input took
+# 15-17 s of CPU on an H100 machine's host (8 cores), so three hold the leg
+# near 50 s, inside 90 s on a host up to 1.8x slower; the whole sweep
+# takes minutes of CPU where the card takes seconds.  Hough normals, card
+# against CPU on the main path's scans: where the winning bin is the same
+# the normals agree within HOUGH_ATOL, as
 # tests/test_torch_hough.py holds the port to the JAX package; rsqrt and
 # acos differ in the last bit between the devices, so a point whose two best
 # bins tie or differ by one vote may change bins: HOUGH_MOVED_SHARE of the
@@ -173,6 +193,7 @@ LR_CAP = 8
 # normal (the same test's bar).
 ALL_CPU_POSES = 200
 ALL_COST_RTOL = 1e-3
+ALL_CPU_WINDOWS = 3
 HOUGH_ATOL = 1e-4
 HOUGH_MOVED_SHARE = 1e-4
 HOUGH_PCA_SHARE = 0.5
@@ -197,6 +218,27 @@ LIB_SCORE_ATOL = 1e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_WEIGHT_ATOL = 1e-3
 TRAIN_CALIB_ATOL = 1e-3
+# Phase 17, the float64 CPU referee (nautilus_tpu_torch/baseline).  A
+# card solve's final cost under the referee's cost, at the final window's
+# correspondences of each solution, within REFEREE_COST_REL of the
+# referee's own solution's (the JAX package's bar, bench.py:398-423) and
+# within REFEREE_COST_TIGHT besides; the HITL step's the same with its rows.
+# The 1 % bar cannot tell a sweep that stopped a window early: the final
+# window moves the cost by about 1 % (phase 6 prints each window's initial
+# and final cost).  So the referee's own cost at x0 and at its solution
+# after the next-to-last window are controls that must lie outside
+# REFEREE_COST_TIGHT, which sits between them and the sound gaps (1e-7 and
+# below on an H100).  The CPU scan-match twin against both
+# engines: the JAX package's bars (tests/test_cpu_csm.py), and transforms
+# within the finest grid step besides.  bench.py's CPU leg matched pairs
+# (i, i+1) for the first CSM_BENCH_PAIRS; CSM_GATED_PAIRS of the main path's
+# window-expanded gated pairs, evenly spaced over the list.
+REFEREE_COST_REL = 1e-2
+REFEREE_COST_TIGHT = 1e-4
+CSM_SCORE_ATOL = 2e-3
+CSM_TRANSFORM_ATOL = 2e-2
+CSM_BENCH_PAIRS = 4
+CSM_GATED_PAIRS = 8
 
 
 def fail(msg):
@@ -525,7 +567,9 @@ HITL_SMALL_LINE = "-5.5 -6 5.5 -6 -5.5 -5.7 5.5 -5.7"
 
 
 def small_reference(cfg_text):
-    """The slice at small size on the card and on the CPU."""
+    """The slice at small size on the card and on the CPU.  Returns the
+    card's HITL input for phase 17: its state, the solution the step
+    started from and the config."""
     import numpy as np
     from nautilus_tpu_torch.core.luaconf import load_config_text
     from nautilus_tpu_torch.ingest.synthetic import reverse_traversal_problem
@@ -547,6 +591,8 @@ def small_reference(cfg_text):
         closed = state.solution.copy()
         # A curation step on a doubled wall: the return pass drifts 0.3 m.
         state.solution[19:, 1] += 0.3
+        hitl_input = {"state": state, "x_pre": state.solution.copy(),
+                      "cfg": cfg}
         apply_hitl_line(solver, HITL_SMALL_LINE.split(), verbose=False)
         c = state.hitl_constraints[0]
         out[dev] = (closed, rep.accepted, state.solution.copy(),
@@ -578,6 +624,7 @@ def small_reference(cfg_text):
     if not (np.all(np.isfinite(hitl_g)) and np.all(np.isfinite(line_g))) \
             or diff_h > POSE_ATOL:
         fail("card HITL poses disagree with the CPU reference")
+    return hitl_input       # the card's: the loop ends on "cuda"
 
 
 def bench_csm_leg(state, engines):
@@ -1057,7 +1104,9 @@ def dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
 def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
                        read_counts, n=1000, beams=720):
     """Phase 12: whole solves on dense, CG and float64 (n and beams are the
-    main path's input, which the float64 run builds again)."""
+    main path's input, which the float64 run builds again).  Returns the
+    float64 run's fused launches and, for phase 17, the dense and float64
+    sweeps' solutions before auto-LC with their walls."""
     import numpy as np
     import torch
     from nautilus_tpu_torch.ingest.synthetic import make_problem
@@ -1070,6 +1119,8 @@ def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
     st = fresh_state(state, x0)
     solver = Solver(st, cfg, linear_solver="dense")
     stats, wall = timed(solver.solve_slam)
+    # Phase 17 scores each route's solve under the float64 referee's cost.
+    solves = {"dense": (st.solution.copy(), wall)}
     print(f"  linear_solver='dense' solve_slam wall {wall!r} s (phase 6 on "
           f"the band {stats6.total_wall_s!r} s); per window (window, "
           "iterations, initial cost, final cost, wall s), then phase 6's "
@@ -1123,6 +1174,7 @@ def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
         fail("make_problem(dtype=float64) built a float32 problem")
     solver = Solver(st, cfg)
     stats, t_solve = timed(solver.solve_slam)
+    solves["float64"] = (st.solution.copy(), t_solve)
     report, t_lc = timed(lambda: auto_lc.solve_auto_lc(solver, apply=True,
                                                        verbose=False))
     counts = read_counts()
@@ -1155,7 +1207,7 @@ def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
              f"{DENSE_COST_RTOL} of float32's {stats6.final_cost}")
     if not ate_closed < ate(x0, gt)["trans_rmse"]:
         fail("float64 closed ATE is not below odometry's")
-    return {"fused_launches_f64": counts["fused_coarse"]}
+    return {"fused_launches_f64": counts["fused_coarse"], "solves": solves}
 
 
 def cg_routes_on_the_closed_graph(state, phase11):
@@ -1230,15 +1282,17 @@ def on_cpu(state):
 
 def all_route_phase(cfg, dev, state, x0, n_cpu=ALL_CPU_POSES, beams=720):
     """Phase 13, optimization type ALL: the main path's input (every pose,
-    every beam) on the card, then a building of ``n_cpu`` poses at the same
-    beam count on the card against the CPU."""
+    every beam) on the card; a building of ``n_cpu`` poses at the same beam
+    count on the card against the CPU, all windows; then the main path's
+    input on the card against the CPU through its first ALL_CPU_WINDOWS
+    windows."""
     import numpy as np
     import torch
     from nautilus_tpu_torch.ingest.synthetic import make_problem
     from nautilus_tpu_torch.solve.solver import Solver
 
-    def sweep(st):
-        solver = Solver(st, cfg)
+    def sweep(st, c=cfg):
+        solver = Solver(st, c)
         stats, wall = timed(lambda: solver.solve_slam(optimization_type="all"))
         if not np.all(np.isfinite(st.solution)):
             fail("non-finite poses after the ALL-type solve")
@@ -1251,6 +1305,35 @@ def all_route_phase(cfg, dev, state, x0, n_cpu=ALL_CPU_POSES, beams=720):
               f"{-(-q // 64)} chunks of 64 per association, "
               f"{len(stats.windows)} associations: solve_slam wall {wall!r} s "
               f"on {solver.last_solver!r}", flush=True)
+
+    def card_against_cpu(st_card, c=cfg):
+        """The same sweep on the card and on the CPU, held per window."""
+        st_cpu = on_cpu(st_card)
+        sv, card, wall = sweep(st_card, c)
+        describe(st_card, sv, card, wall, "the card")
+        t0 = time.perf_counter()
+        sv_cpu, cpu, _ = sweep(st_cpu, c)
+        describe(st_cpu, sv_cpu, cpu, time.perf_counter() - t0, "the CPU")
+        d_pose = float(np.abs(st_card.solution - st_cpu.solution).max())
+        print(f"  per window (window, card iterations, card final cost | CPU "
+              f"iterations, CPU final cost, CPU wall s), tolerance rtol "
+              f"{ALL_COST_RTOL}; max |d pose| {d_pose!r} (tolerance "
+              f"{POSE_ATOL}):")
+        for w, c_ in zip(card.windows, cpu.windows):
+            print(f"    {w.window} {w.iterations} {w.final_cost!r} | "
+                  f"{c_.iterations} {c_.final_cost!r} {c_.wall_s!r}")
+        if len(card.windows) != len(cpu.windows):
+            fail("the card and the CPU swept different windows")
+        for w, c_ in zip(card.windows, cpu.windows):
+            if abs(w.final_cost - c_.final_cost) \
+                    > ALL_COST_RTOL * c_.final_cost:
+                fail(f"ALL-type window {w.window}: final cost on the card "
+                     f"{w.final_cost} differs from the CPU's {c_.final_cost} "
+                     f"by more than rtol {ALL_COST_RTOL}")
+        if d_pose > POSE_ATOL:
+            fail(f"ALL-type poses on the card differ from the CPU's by "
+                 f"{d_pose}")
+        return cpu
 
     st = fresh_state(state, x0)
     torch.cuda.synchronize()
@@ -1269,26 +1352,18 @@ def all_route_phase(cfg, dev, state, x0, n_cpu=ALL_CPU_POSES, beams=720):
     st_card, _ = make_problem(n_cpu, "building", num_beams=beams, seed=1,
                               odom_noise_trans=0.02, odom_noise_rot=0.008,
                               device=dev)
-    st_cpu = on_cpu(st_card)
-    sv, card, wall = sweep(st_card)
-    describe(st_card, sv, card, wall, "the card")
-    t0 = time.perf_counter()
-    sv_cpu, cpu, _ = sweep(st_cpu)
-    describe(st_cpu, sv_cpu, cpu, time.perf_counter() - t0, "the CPU")
-    d_pose = float(np.abs(st_card.solution - st_cpu.solution).max())
-    print(f"  per window (window, card iterations, card final cost | CPU "
-          f"iterations, CPU final cost), tolerance rtol {ALL_COST_RTOL}; max "
-          f"|d pose| {d_pose!r} (tolerance {POSE_ATOL}):")
-    for w, c in zip(card.windows, cpu.windows):
-        print(f"    {w.window} {w.iterations} {w.final_cost!r} | "
-              f"{c.iterations} {c.final_cost!r}")
-    for w, c in zip(card.windows, cpu.windows):
-        if abs(w.final_cost - c.final_cost) > ALL_COST_RTOL * c.final_cost:
-            fail(f"ALL-type window {w.window}: final cost on the card "
-                 f"{w.final_cost} differs from the CPU's {c.final_cost} by "
-                 f"more than rtol {ALL_COST_RTOL}")
-    if d_pose > POSE_ATOL:
-        fail(f"ALL-type poses on the card differ from the CPU's by {d_pose}")
+    small = card_against_cpu(st_card)
+
+    # The main path's input itself on the CPU, cut to its first windows.
+    k = ALL_CPU_WINDOWS
+    print(f"  the main path's input ({state.num_nodes} poses) card against "
+          f"CPU, cut to windows 1-{k} of {len(small.windows)} "
+          f"(lidar_constraint_amount_max={k}) to hold this leg near 50 s of "
+          f"CPU: the whole sweep would take minutes (the {n_cpu}-pose one "
+          f"just took {small.windows[-1].wall_s!r} s for its last window "
+          f"alone)", flush=True)
+    card_against_cpu(fresh_state(state, x0),
+                     cfg.replace(lidar_constraint_amount_max=k))
 
 
 def hough_phase(state):
@@ -1779,6 +1854,233 @@ def trainer_phase(dev, state_at_gate, gated_pairs, threshold, shipped):
           f"{len(kept_s)}; same set: {kept == kept_s}", flush=True)
 
 
+def cpu_model():
+    """The host CPU as lscpu names it: its "Model name", or where a virtual
+    machine's says "unknown", its vendor, family and model numbers; and the
+    CPUs this process may use."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60)
+    f = {k.strip(): v.strip() for k, _, v in (
+        line.partition(":") for line in out.stdout.splitlines())}
+    name = f.get("Model name", "unknown")
+    if name.lower() in ("unknown", "-", ""):
+        name = (f"{f.get('Vendor ID', 'unknown vendor')} family "
+                f"{f.get('CPU family', '?')} model {f.get('Model', '?')}")
+    return f"{name}, {len(os.sched_getaffinity(0))} CPUs"
+
+
+def referee_cost(prob, x, cfg, hitl=None, line_poses=None):
+    """The referee's float64 cost of poses x at the final window's
+    correspondences associated at x (bench.py's f64_cost), with HITL rows
+    and their line poses where given."""
+    import numpy as np
+    from nautilus_tpu_torch.baseline import cpu_reference as cpu
+    planar, edge = cpu.associate(prob, x,
+                                 cfg.get_int("lidar_constraint_amount_max"),
+                                 float(cfg.outlier_threshold))
+    if hitl is not None:
+        x = np.concatenate([x, line_poses])
+    return cpu.total_cost(prob, x, planar, edge, float(cfg.translation_weight),
+                          float(cfg.rotation_weight), hitl=hitl)
+
+
+def hold_gap(what, gap, control=False):
+    """A solution under test lies inside both referee bars; a control (a
+    solution known to be short of the end) outside the tight one, or the
+    bars could not tell the two apart."""
+    if control and not gap >= REFEREE_COST_TIGHT:
+        fail(f"{what} is only {gap} from the referee's final cost: the "
+             f"{REFEREE_COST_TIGHT} bar cannot tell an unfinished solve")
+    if not control and not gap < REFEREE_COST_TIGHT:   # < REFEREE_COST_REL
+        fail(f"{what} is {gap} from the float64 referee's final cost, past "
+             f"the {REFEREE_COST_TIGHT} bar (the JAX package's is "
+             f"{REFEREE_COST_REL})")
+
+
+def referee_solve(cfg, state, x0, gt, solves, say):
+    """Phase 17's solve: the referee's growing-window sweep of the main
+    path's input on the CPU from phase 6's x0, and every card sweep of the
+    same input scored under its cost.  The sweep runs as two calls, through
+    the next-to-last window and then the last, which is the same sweep; the
+    solution between them and x0 are the controls.  solves: route -> (poses
+    before auto-LC, card wall s)."""
+    from nautilus_tpu_torch.baseline import cpu_reference as cpu
+    from nautilus_tpu_torch.utils.metrics import ate
+
+    t0 = time.perf_counter()
+    prob = cpu.CpuProblem.from_device_problem(state.problem)
+    t_copy = time.perf_counter() - t0
+    last = cfg.get_int("lidar_constraint_amount_max")
+    t0 = time.perf_counter()
+    x_early, head = cpu.solve_slam(
+        prob, x0, cfg.replace(lidar_constraint_amount_max=last - 1))
+    x_ref, tail = cpu.solve_slam(
+        prob, x_early, cfg.replace(lidar_constraint_amount_min=last))
+    wall = time.perf_counter() - t0
+    say(f"referee solve_slam on the CPU: {len(prob.points)} poses, wall "
+        f"{wall!r} s (copy from the card {t_copy!r} s); per window (window, "
+        f"iterations, cost, wall s):")
+    for w in head.windows + tail.windows:
+        print(f"    {w['window']} {w['iterations']} {w['cost']!r} "
+              f"{w['wall_s']!r}")
+    t0 = time.perf_counter()
+    c_ref = referee_cost(prob, x_ref, cfg)
+    say(f"referee's float64 cost at its own solution {c_ref!r} (scored in "
+        f"{time.perf_counter() - t0!r} s); ATE against ground truth: "
+        f"referee {ate(x_ref, gt)['trans_rmse']!r} m, card band "
+        f"{ate(solves['band'][0], gt)['trans_rmse']!r} m")
+    for what, x in (("x0", x0),
+                    (f"the referee's solution after window {last - 1}",
+                     x_early)):
+        c = referee_cost(prob, x, cfg)
+        gap = abs(c - c_ref) / c_ref
+        say(f"control, {what}: scores {c!r} under the referee's cost, gap "
+            f"{gap!r} (must lie outside the {REFEREE_COST_TIGHT} bar; "
+            f"outside the {REFEREE_COST_REL} bar: {gap >= REFEREE_COST_REL})")
+        hold_gap(f"control {what}", gap, control=True)
+    for route, (x, card_wall) in solves.items():
+        c = referee_cost(prob, x, cfg)
+        gap = abs(c - c_ref) / c_ref
+        say(f"{route}: the card's solution scores {c!r} under the referee's "
+            f"cost, gap {gap!r} (bars {REFEREE_COST_TIGHT} and "
+            f"{REFEREE_COST_REL}); card solve_slam {card_wall!r} s, referee "
+            f"{wall!r} s, ratio {wall / card_wall!r}")
+        hold_gap(f"the card's {route} solve", gap)
+
+
+def referee_hitl(small, say):
+    """Phase 17's HITL step: phase 5's 32-pose slice at the solution phase
+    5's step started from, through the port's step on the card and the
+    referee's hitl_callback on the CPU.  Neither has the closures phase 5
+    applied before it (the referee models none)."""
+    import numpy as np
+    from nautilus_tpu_torch.baseline import cpu_reference as cpu
+    from nautilus_tpu_torch.cli import apply_hitl_line
+    from nautilus_tpu_torch.solve.solver import Solver
+
+    cfg, x_pre = small["cfg"], small["x_pre"]
+    st = fresh_state(small["state"], x_pre)
+    solver = Solver(st, cfg)
+    _, card_wall = timed(lambda: apply_hitl_line(
+        solver, HITL_SMALL_LINE.split(), verbose=False))
+    v = [float(t) for t in HITL_SMALL_LINE.split()]
+    line_a, line_b = (v[0:2], v[2:4]), (v[4:6], v[6:8])
+    prob = cpu.CpuProblem.from_device_problem(st.problem)
+    t0 = time.perf_counter()
+    x_ref, stats = cpu.hitl_callback(prob, x_pre.copy(), cfg, line_a, line_b)
+    wall = time.perf_counter() - t0
+    rows = cpu.hitl_rows(prob, x_pre, cfg, line_a, line_b)
+    c = st.hitl_constraints[0]
+    card_nodes = sorted(k for k, _ in c.line_a_poses + c.line_b_poses)
+    c_start = referee_cost(prob, x_pre, cfg, rows, np.zeros((1, 3)))
+    c_ref = referee_cost(prob, x_ref, cfg, rows, stats.line_poses)
+    c_card = referee_cost(prob, st.solution, cfg, rows, st.line_poses)
+    gap_start = abs(c_start - c_ref) / c_ref
+    gap = abs(c_card - c_ref) / c_ref
+    say(f"HITL step on phase 5's slice ({st.num_nodes} poses, "
+        f"{len(rows.node)} rows): poses selected card {card_nodes} referee "
+        f"{sorted(rows.node.tolist())}; referee's float64 cost with the rows: "
+        f"start {c_start!r} (gap {gap_start!r}, a control), referee "
+        f"{c_ref!r}, card {c_card!r}, gap {gap!r} (bars {REFEREE_COST_TIGHT} "
+        f"and {REFEREE_COST_REL}); line pose card "
+        f"{st.line_poses.tolist()} referee {stats.line_poses.tolist()}; "
+        f"card step {card_wall!r} s, referee {wall!r} s")
+    if card_nodes != sorted(rows.node.tolist()) or not card_nodes:
+        fail("the card's HITL step selected other poses than the referee's")
+    if not np.all(np.isfinite(st.solution)) or not c_ref < c_start:
+        fail("the HITL step did not lower the referee's cost")
+    hold_gap("the HITL step's start", gap_start, control=True)
+    hold_gap("the card's HITL step", gap)
+
+
+def referee_csm(cfg, state, at_gate, gated_pairs, say):
+    """Phase 17's scan matching: the CPU twin (baseline/cpu_csm.py) against
+    the stage engine (fused coarse kernel) and the pair engine (correlation
+    kernel) on the card, on bench.py's CPU-leg pairs at the reference params
+    and on gated pairs of the main path at its params and centres.  Each
+    engine runs with the product's bfloat16-rounded coarse table and with
+    the float32 table the twin scores (``coarse_f32``): on a pair whose
+    scores are flat (no overlap) the rounding can move the coarse argmax."""
+    import numpy as np
+    from nautilus_tpu_torch.baseline import cpu_csm
+    from nautilus_tpu_torch.kernels.csm import (CSMParams, csm_match_pairs,
+                                                wrap_angle)
+    from nautilus_tpu_torch.loop_closure import auto_lc
+
+    pts, msk = state.problem.points, state.problem.points_mask
+    pts_h, msk_h = pts.cpu().numpy(), msk.cpu().numpy()
+    n = state.num_nodes
+    w = int(cfg.get("lc_match_window_size", 0))
+    expanded = np.array([(s, t + d) for s, t in gated_pairs
+                         for d in range(-w, w + 1)
+                         if 0 <= t + d < n and t + d != s], np.int64)
+    pick = np.unique(np.linspace(0, len(expanded) - 1,
+                                 CSM_GATED_PAIRS).round().astype(np.int64))
+    g_ss, g_tt = expanded[pick, 0], expanded[pick, 1]
+    sets = (
+        (f"bench.py's CPU-leg pairs (i, i+1), i < {CSM_BENCH_PAIRS}, at the "
+         "reference params", np.arange(CSM_BENCH_PAIRS),
+         np.arange(1, CSM_BENCH_PAIRS + 1), np.zeros(CSM_BENCH_PAIRS),
+         CSMParams()),
+        (f"{len(pick)} of the {len(expanded)} window-expanded gated pairs, "
+         "evenly spaced, at the main path's params and centres", g_ss, g_tt,
+         wrap_angle(at_gate.solution[g_ss, 2] - at_gate.solution[g_tt, 2]),
+         auto_lc._csm_params_from_config(cfg)))
+    for label, ss, tt, centers, params in sets:
+        t0 = time.perf_counter()
+        s_c, tr_c = cpu_csm.csm_match_batch_cpu(
+            pts_h[ss], msk_h[ss], pts_h[tt], msk_h[tt], params,
+            rotation_centers=centers)
+        wall = time.perf_counter() - t0
+        step_t, step_r = params.high_res, params.high_res / params.scan_range
+        say(f"{label}: {list(zip(ss.tolist(), tt.tolist()))}; CPU twin "
+            f"{len(ss) / wall!r} pairs/s ({wall!r} s)")
+        # The product's bfloat16-rounded coarse table, then the float32 one
+        # the twin scores.
+        for engine, p in itertools.product(
+                ("stage", "pair"), (params, params._replace(coarse_f32=True))):
+            (s_e, tr_e), t_e = timed(lambda: csm_match_pairs(
+                pts, msk, ss, tt, p, rotation_centers=centers, engine=engine))
+            d_score = float(np.abs(s_e - s_c).max())
+            d_tr = np.abs(tr_e - tr_c)
+            d_trans, d_rot = float(d_tr[:, :2].max()), float(d_tr[:, 2].max())
+            what = f"engine={engine} coarse_f32={p.coarse_f32}"
+            say(f"  {what}: {len(ss) / t_e!r} pairs/s ({t_e!r} s); max |d "
+                f"score| {d_score!r} (bar {CSM_SCORE_ATOL}), max |d "
+                f"translation| {d_trans!r} m, max |d rotation| {d_rot!r} rad "
+                f"(bar {CSM_TRANSFORM_ATOL}; grid {step_t} m, {step_r!r} rad)")
+            if not np.all(np.isfinite(s_e)) or d_score > CSM_SCORE_ATOL \
+                    or float(d_tr.max()) > CSM_TRANSFORM_ATOL:
+                fail(f"{what} disagrees with the CPU twin on {label}")
+            if d_trans > step_t + 1e-6 or d_rot > step_r + 1e-6:
+                fail(f"{what} transforms differ from the CPU twin's by more "
+                     f"than the finest grid step on {label}")
+
+
+def referee_phase(cfg, state, x0, gt, solves, small, at_gate, gated_pairs,
+                  card, read_counts):
+    """Phase 17: the float64 CPU referee (nautilus_tpu_torch/baseline) on
+    the card machine's CPU against the card.  Every line names the card and
+    the host CPU.  Returns the kernels' launches in the phase."""
+    import scipy  # the referee's own dependency: fail here without it
+
+    host = cpu_model()
+
+    def say(msg):
+        print(f"  {msg} [{card}; host CPU {host}; scipy {scipy.__version__}]",
+              flush=True)
+
+    referee_solve(cfg, state, x0, gt, solves, say)
+    referee_hitl(small, say)
+    referee_csm(cfg, state, at_gate, gated_pairs, say)
+    counts = read_counts()
+    say(f"kernel launches in the referee phase: {counts}")
+    for name, launches in counts.items():
+        if launches == 0:
+            fail(f"the referee phase never launched {name}")
+    return counts
+
+
 def main():
     if not (ROOT / "nautilus_tpu_torch" / "kernels" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1792,7 +2094,12 @@ def main():
 
     # -- 1. environment ------------------------------------------------------
     t_all = time.perf_counter()
-    print("[1/16] environment", flush=True)
+
+    def banner(title):
+        print(f"{title} [{time.perf_counter() - t_all!r} s into the run]",
+              flush=True)
+
+    banner("[1/17] environment")
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
     from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
@@ -1815,8 +2122,7 @@ def main():
         return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    print("[2/16] build: one nvcc per kernel source, started together",
-          flush=True)
+    banner("[2/17] build: one nvcc per kernel source, started together")
     sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
     t0 = time.perf_counter()
     _build.build_all(sources)
@@ -1830,18 +2136,18 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    print(f"[3/16] fused coarse kernel against plain (bench shapes at C=8 and "
-          f"at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
-          f"gdc_2020 range)", flush=True)
+    banner(f"[3/17] fused coarse kernel against plain (bench shapes at C=8 "
+           f"and at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
+           f"gdc_2020 range)")
     cases = [kernel_case(dev, scan_range=30.0),
              kernel_case(dev, scan_range=30.0, C=PAIR_CHUNK, seed=2),
              kernel_case(dev, scan_range=8.5, seed=1)]
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    print(f"[4/16] correlation kernel against plain (the pair engine's batch "
-          f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
-          f"table in global memory)", flush=True)
+    banner(f"[4/17] correlation kernel against plain (the pair engine's batch "
+           f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
+           f"table in global memory)")
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
                   correlate_case(dev, 12.0, PAIR_BATCH, seed=5),
                   correlate_case(dev, 8.5, PAIR_BATCH, seed=6)]
@@ -1850,8 +2156,8 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    print("[5/16] small-input reference: card vs CPU", flush=True)
-    small_reference(
+    banner("[5/17] small-input reference: card vs CPU")
+    small = small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
         "lidar_constraint_amount_max=3\noutlier_threshold=0.25\n"
@@ -1860,9 +2166,8 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    print("[6/16] main path: make_problem(1000, building, 720 beams, seed 1) "
-          "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses",
-          flush=True)
+    banner("[6/17] main path: make_problem(1000, building, 720 beams, seed 1) "
+           "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses")
     from nautilus_tpu_torch.core.luaconf import load_config
     from nautilus_tpu_torch.ingest.synthetic import make_problem
     from nautilus_tpu_torch.io.poses import read_pose_file, write_poses
@@ -1931,8 +2236,8 @@ def main():
     system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    print("[7/16] pair engine: bench.py's CSM leg, then the main path's gated "
-          "pairs through engine='pair' against engine='stage'", flush=True)
+    banner("[7/17] pair engine: bench.py's CSM leg, then the main path's "
+           "gated pairs through engine='pair' against engine='stage'")
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
     # The gated pairs as auto-LC matched them: at the solution it gated on.
@@ -1977,9 +2282,8 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    print(f"[8/16] HITL: bench.py's scripted constraint (lines "
-          f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map",
-          flush=True)
+    banner(f"[8/17] HITL: bench.py's scripted constraint (lines "
+           f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map")
     from nautilus_tpu_torch.cli import apply_hitl_line
     from nautilus_tpu_torch.solve.hitl import hitl_cost
 
@@ -2035,16 +2339,15 @@ def main():
              f"({cost_start} -> {hitl_costs[0]})")
 
     # -- 9. bag path ------------------------------------------------------------
-    print("[9/16] bag path: bench.py's GDC-scale bag (1000 poses, building, "
-          "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
-          "--write --vectorize and auto_lc=true", flush=True)
+    banner("[9/17] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+           "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
+           "--write --vectorize and auto_lc=true")
     with tempfile.TemporaryDirectory() as tmp:
         bag_path_phase(Path(tmp), zero_counts, read_counts)
 
     # -- 10. CR backend -----------------------------------------------------------
-    print("[10/16] CR backend: make_problem(5000, building, 720 beams, seed 1) "
-          "-> solve_slam, then scan against CR at N=1000 and N=5000",
-          flush=True)
+    banner("[10/17] CR backend: make_problem(5000, building, 720 beams, "
+           "seed 1) -> solve_slam, then scan against CR at N=1000 and N=5000")
     solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
     scan_vs_cr("closed map of phase 6", solver, system_1000)
     scan_vs_cr("5000-pose solve", solver_5000,
@@ -2052,26 +2355,24 @@ def main():
     del solver_5000
 
     # -- 11. dense fallback -----------------------------------------------------
-    print(f"[11/16] dense fallback: phase 6's input with lr_factor_cap="
-          f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
-          "on dense Cholesky; then the gate's dense engine against its band "
-          "engine", flush=True)
+    banner(f"[11/17] dense fallback: phase 6's input with lr_factor_cap="
+           f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
+           "on dense Cholesky; then the gate's dense engine against its band "
+           "engine")
     phase6 = {"report": report, "ate_closed": ate_closed,
               "ate_odom": ate_odom}
     phase11 = dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
                                    read_counts)
 
     # -- 12. the other routes ---------------------------------------------------
-    print("[12/16] other routes on the same input: dense sweep, CG on the "
-          "closed graph, float64 from make_problem to the closed map",
-          flush=True)
+    banner("[12/17] other routes on the same input: dense sweep, CG on the "
+           "closed graph, float64 from make_problem to the closed map")
     phase12 = other_routes_phase(cfg, state, x0, gt, stats, phase11, dev,
                                  zero_counts, read_counts)
 
     # -- 13. the small routes ---------------------------------------------------
-    print("[13/16] small routes at the main path's width: optimization type "
-          "ALL, Hough normals, the descriptor gate on phase 6's gated pairs",
-          flush=True)
+    banner("[13/17] small routes at the main path's width: optimization type "
+           "ALL, Hough normals, the descriptor gate on phase 6's gated pairs")
     zero_counts()
     all_route_phase(cfg, dev, state, x0)
     hough_phase(state)
@@ -2080,17 +2381,17 @@ def main():
                                          read_counts)
 
     # -- 14. the mesh ---------------------------------------------------------
-    print(f"[14/16] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
-          "one card, the sharded CSM batch against phase 7's pair engine, "
-          "--devices 2 through the CLI", flush=True)
+    banner(f"[14/17] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
+           "one card, the sharded CSM batch against phase 7's pair engine, "
+           "--devices 2 through the CLI")
     phase6["stats"] = stats
     mesh_launches = sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate,
                                   (s_pr, tr_pr, best_pr), zero_counts)
 
     # -- 15. the visualizer, the bridge, the library calls ---------------------
-    print("[15/16] the visualizer and the ROS command bridge on phase 6's "
-          "input, best_scan_match and csm_match_grouped on its gated pairs, "
-          "the device busy share of its solve and auto-LC", flush=True)
+    banner("[15/17] the visualizer and the ROS command bridge on phase 6's "
+           "input, best_scan_match and csm_match_grouped on its gated pairs, "
+           "the device busy share of its solve and auto-LC")
     zero_counts()
     library_launches, busy = visualizer_phase(
         cfg, state, x0, stats, {"solve": t_solve, "auto-LC": t_lc}, closed,
@@ -2098,10 +2399,20 @@ def main():
         read_counts)
 
     # -- 16. the trainer ------------------------------------------------------
-    print("[16/16] the trainer: train(300 steps, seed 0) on the card against "
-          "the CPU, then the descriptor gate with its weights", flush=True)
+    banner("[16/17] the trainer: train(300 steps, seed 0) on the card against "
+           "the CPU, then the descriptor gate with its weights")
     trainer_phase(dev, fresh_state(state, x_solved), list(report.gated_pairs),
                   float(cfg.get("lc_match_threshold", 0.5)), shipped_gate)
+
+    # -- 17. the referee ------------------------------------------------------
+    banner("[17/17] the float64 CPU referee: phase 6's input solved on the "
+           "CPU against the band, dense and float64 sweeps; phase 5's HITL "
+           "step; the CPU scan-match twin against both engines")
+    solves = {"band": (x_solved, t_solve), **phase12["solves"]}
+    zero_counts()
+    referee_launches = referee_phase(cfg, state, x0, gt, solves, small,
+                                     at_gate, list(report.gated_pairs), card,
+                                     read_counts)
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")
@@ -2126,14 +2437,16 @@ def main():
                max(c["max_abs_err"] for c in cases), main_shape,
                "float32 adds at 33.5e12/s (67 TFLOP/s counts an FMA as 2)",
                launches_dense_fallback=phase11["launches"]["fused_coarse"],
-               launches_float64=phase12["fused_launches_f64"]),
+               launches_float64=phase12["fused_launches_f64"],
+               launches_referee=referee_launches["fused_coarse"]),
         record("correlate",
                "nautilus_tpu_torch/kernels/csrc/csm_correlate.cu",
                "nautilus_tpu/kernels/csm_pallas.py:43",
                pair_counts["correlate"], corr_err, corr_shape,
                "HBM bytes at 3.35 TB/s",
                launches_sharded_per_rank=mesh_launches,
-               launches_library_calls=library_launches)]}))
+               launches_library_calls=library_launches,
+               launches_referee=referee_launches["correlate"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

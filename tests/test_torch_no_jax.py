@@ -215,20 +215,80 @@ def test_native_build_compiles_the_ports_own_source(tmp_path):
 
 
 def test_no_jax_imports_in_package():
+    offenders = [f"{path.relative_to(ROOT)}: {name}"
+                 for path in sorted(PACKAGE.rglob("*.py"))
+                 for name in _imported_names(path)
+                 if name.split(".")[0] in ("jax", "jaxlib", "nautilus_tpu")]
+    assert not offenders, offenders
+
+
+REFEREE = """
+import sys
+sys.modules["jax"] = None                 # any jax import now fails
+sys.modules["nautilus_tpu"] = None        # and so does the JAX package's
+sys.path.insert(0, {root!r})
+import numpy as np
+from nautilus_tpu_torch.baseline import cpu_csm, cpu_reference as cpu
+from nautilus_tpu_torch.core.luaconf import load_config
+from nautilus_tpu_torch.ingest.synthetic import make_problem
+cfg = load_config({cfg!r}).replace(lidar_constraint_amount_max=2)
+state, _ = make_problem(6, "room", num_beams=180, seed=0, device="cpu")
+prob = cpu.CpuProblem.from_device_problem(state.problem)
+x, stats = cpu.solve_slam(prob, state.solution, cfg)
+assert np.all(np.isfinite(x)) and np.isfinite(stats.final_cost)
+pts = state.problem.points.numpy()
+msk = state.problem.points_mask.numpy()
+scores, _ = cpu_csm.csm_match_batch_cpu(pts[1:2], msk[1:2], pts[:1], msk[:1],
+                                        cpu_csm.CSMParams(scan_range=6.0))
+assert np.all(np.isfinite(scores))
+bad = [m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "nautilus_tpu"))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_referee_runs_with_jax_blocked():
+    """nautilus_tpu_torch.baseline imports neither jax nor the JAX package:
+    a solve and a scan match of the referee with both blocked."""
+    code = REFEREE.format(root=str(ROOT),
+                          cfg=str(ROOT / "config" / "default_config.lua"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def _imported_names(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def test_product_modules_import_neither_the_referee_nor_scipy():
+    """The referee lies beside the product: no module of the port outside
+    baseline/ imports it, and none needs scipy."""
+    referee = PACKAGE / "baseline"
     offenders = []
     for path in sorted(PACKAGE.rglob("*.py")):
-        for node in ast.walk(ast.parse(path.read_text())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "nautilus_tpu"):
-                    offenders.append(f"{path.relative_to(ROOT)}: {name}")
+        if path.is_relative_to(referee):
+            continue
+        for name in _imported_names(path):
+            if name.split(".")[0] == "scipy" or name.startswith(
+                    "nautilus_tpu_torch.baseline"):
+                offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
+    assert any("scipy" in name for path in referee.glob("*.py")
+               for name in _imported_names(path))
+
+
+def test_the_ports_extra_names_scipy_for_the_referee():
+    import tomllib
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert "scipy" in conf["project"]["optional-dependencies"][
+        "nautilus_tpu_torch"]
 
 
 def test_package_data_ships_what_the_port_loads(tmp_path):
@@ -263,7 +323,7 @@ def test_package_data_ships_what_the_port_loads(tmp_path):
     assert conf["project"]["scripts"]["nautilus_tpu_torch"] == \
         "nautilus_tpu_torch.cli:main"
     assert conf["project"]["optional-dependencies"]["nautilus_tpu_torch"] \
-        == ["torch"]
+        == ["torch", "scipy"]
     assert _build.BUILD_DIR == ROOT / "build" / "nautilus_tpu_torch"
     assert _build.build_dir(tmp_path) == \
         Path.home() / ".cache" / "nautilus_tpu_torch" / "build"
