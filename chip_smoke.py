@@ -964,6 +964,24 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def traced(fn):
+    """(result, wall seconds, {root span: seconds}) of timed(fn) with the
+    port's tracer on (utils/timer); auto-LC's root spans are its four
+    stages, lc.candidates, lc.gate, lc.csm and lc.resolve."""
+    from nautilus_tpu_torch.utils import timer
+    timer.tracing(True)
+    try:
+        out, wall = timed(fn)
+    finally:
+        timer.tracing(False)
+    stages = {}
+    for sp in timer.take():
+        if sp.parent < 0:
+            stages[sp.name] = stages.get(sp.name, 0.0) \
+                + (sp.t1_ns - sp.t0_ns) * 1e-9
+    return out, wall, stages
+
+
 def print_windows(stats):
     for w in stats.windows:
         print(f"    {w.window} {w.iterations} {w.initial_cost!r} "
@@ -990,8 +1008,8 @@ def dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
     stats, t_solve = timed(solver.solve_slam)
     solved_with = solver.last_solver
     x_solved = st.solution.copy()
-    report, t_lc = timed(lambda: auto_lc.solve_auto_lc(solver, apply=True,
-                                                       verbose=False))
+    report, t_lc, stages = traced(lambda: auto_lc.solve_auto_lc(
+        solver, apply=True, verbose=False))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = (len(report.candidates), len(report.gated_pairs),
@@ -1001,7 +1019,7 @@ def dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
     ate_closed = ate(st.solution, gt)["trans_rmse"]
     print(f"  lr_factor_cap={LR_CAP}: solve_slam on {solved_with!r} wall "
           f"{t_solve!r} s, final cost {stats.final_cost!r}; auto-LC wall "
-          f"{t_lc!r} s, stages {report.stage_walls}")
+          f"{t_lc!r} s, stages {stages}")
     print(f"  candidates/gated/accepted {n[0]}/{n[1]}/{n[2]} (phase 6: "
           f"{n_ref[0]}/{n_ref[1]}/{n_ref[2]}); re-solve resolved to "
           f"{solver.last_solver!r} on a {3 * st.num_nodes} x "
@@ -1175,15 +1193,15 @@ def other_routes_phase(cfg, state, x0, gt, stats6, phase11, dev, zero_counts,
     solver = Solver(st, cfg)
     stats, t_solve = timed(solver.solve_slam)
     solves["float64"] = (st.solution.copy(), t_solve)
-    report, t_lc = timed(lambda: auto_lc.solve_auto_lc(solver, apply=True,
-                                                       verbose=False))
+    report, t_lc, stages = traced(lambda: auto_lc.solve_auto_lc(
+        solver, apply=True, verbose=False))
     counts = read_counts()
     n = (len(report.candidates), len(report.gated_pairs),
          len(report.accepted))
     ate_closed = ate(st.solution, gt)["trans_rmse"]
     print(f"  solver_dtype=float64: preprocess {t_pre!r} s, solve_slam "
           f"{t_solve!r} s (float32 {stats6.total_wall_s!r} s), auto-LC "
-          f"{t_lc!r} s, stages {report.stage_walls}")
+          f"{t_lc!r} s, stages {stages}")
     print("  per window (window, iterations, float64 final cost | float32 "
           "final cost):")
     for w, w6 in zip(stats.windows, stats6.windows):
@@ -1487,7 +1505,7 @@ def sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate, pair_result,
             stats, t_sweep = timed(solver.solve_slam)
             sweep_red = mark()
             x_solved = st.solution.copy()
-            report, t_lc = timed(lambda: auto_lc.solve_auto_lc(
+            report, t_lc, stages = traced(lambda: auto_lc.solve_auto_lc(
                 solver, apply=True, verbose=False))
             resolve_red = mark()
             launches = [c["correlate"] for c in mesh.launches(reset=True)]
@@ -1512,7 +1530,7 @@ def sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate, pair_result,
               f"solve_slam on "
               f"{solver.last_solver!r} wall {t_sweep!r} s, final cost "
               f"{stats.final_cost!r} (one process {stats6.final_cost!r}); "
-              f"auto-LC wall {t_lc!r} s, stages {report.stage_walls}, engine "
+              f"auto-LC wall {t_lc!r} s, stages {stages}, engine "
               f"{report.csm_engine!r}; re-solve {resolve.iterations} LM steps "
               f"{resolve.wall_s!r} s")
         print(f"    candidates/gated/accepted {n[0]}/{n[1]}/{n[2]} (one "
@@ -1717,8 +1735,8 @@ def busy_share_phase(cfg, state, x0, walls6):
     profiler, and over phase 6's wall of the same work without it."""
     from nautilus_tpu_torch.loop_closure import auto_lc
     from nautilus_tpu_torch.solve.solver import Solver
-    from nautilus_tpu_torch.utils.timer import (device_busy_s, device_trace,
-                                                profile_to)
+    from nautilus_tpu_torch.utils.timer import (device_busy_s, profile_to,
+                                                span)
 
     solver = Solver(fresh_state(state, x0), cfg)
     shares = {}
@@ -1726,7 +1744,7 @@ def busy_share_phase(cfg, state, x0, walls6):
                      ("auto-LC", lambda: auto_lc.solve_auto_lc(
                          solver, apply=True, verbose=False))):
         with profile_to() as prof:
-            with device_trace(f"nautilus {name}"):
+            with span(f"nautilus {name}"):
                 result, wall = timed(fn)
         t0 = time.perf_counter()
         busy = device_busy_s(prof)
@@ -2189,9 +2207,8 @@ def main():
     stats = solver.solve_slam()
     t_solve = time.perf_counter() - t0
     x_solved = state.solution.copy()
-    t0 = time.perf_counter()
-    report = auto_lc.solve_auto_lc(solver, apply=True, verbose=False)
-    t_lc = time.perf_counter() - t0
+    report, t_lc, stages = traced(lambda: auto_lc.solve_auto_lc(
+        solver, apply=True, verbose=False))
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "poses.txt"
         write_poses(state, path)
@@ -2209,7 +2226,7 @@ def main():
     print_windows(stats)
     print(f"  final cost {stats.final_cost!r} (BENCH_r05 f64 cost at the JAX "
           f"solution: {BENCH_R05['final_cost']})")
-    print(f"  auto-LC wall {t_lc!r} s; stages {report.stage_walls}")
+    print(f"  auto-LC wall {t_lc!r} s; stages {stages}")
     print(f"  candidates {len(report.candidates)} gated "
           f"{len(report.gated_pairs)} accepted {len(report.accepted)} "
           f"(BENCH_r05: {BENCH_R05['candidates']}/{BENCH_R05['gated']}/"

@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nautilus_tpu_torch.utils.timer import span
+
 
 class FeatureParams(NamedTuple):
     """Defaults mirror the reference's hardcoded feature-extractor args."""
@@ -333,8 +335,9 @@ def preprocess(points, mask, device,
     if config is not None:
         normal_params = normal_params_from_config(
             config, method=normal_params.method)
-    pts = torch.as_tensor(points, dtype=torch.float32, device=device)
-    msk = torch.as_tensor(mask, dtype=torch.bool, device=device)
-    normals = compute_normals(pts, msk, normal_params)
-    feats = extract_features(pts, msk, feature_params)
+    with span("preprocess"):
+        pts = torch.as_tensor(points, dtype=torch.float32, device=device)
+        msk = torch.as_tensor(mask, dtype=torch.bool, device=device)
+        normals = compute_normals(pts, msk, normal_params)
+        feats = extract_features(pts, msk, feature_params)
     return (normals,) + feats

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from nautilus_tpu_torch.utils.timer import span
+
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -184,20 +186,21 @@ def build_problem(raw: RawNodes, normals, planar_idx, planar_mask, edge_idx,
                   edge_mask, device, dtype=torch.float32) -> SLAMProblem:
     """Assemble the device problem from ingest + preprocessing outputs."""
     f, i64, b = dtype, torch.int64, torch.bool
-    return SLAMProblem(
-        points=_tensor(raw.points, f, device),
-        points_mask=_tensor(raw.points_mask, b, device),
-        normals=_tensor(normals, f, device),
-        planar_idx=_tensor(planar_idx, i64, device),
-        planar_mask=_tensor(planar_mask, b, device),
-        edge_idx=_tensor(edge_idx, i64, device),
-        edge_mask=_tensor(edge_mask, b, device),
-        initial_poses=_tensor(raw.initial_poses, f, device),
-        odom_i=_tensor(raw.odom_i, i64, device),
-        odom_j=_tensor(raw.odom_j, i64, device),
-        odom_trans=_tensor(raw.odom_trans, f, device),
-        odom_rot=_tensor(raw.odom_rot, f, device),
-    )
+    with span("problem.build"):
+        return SLAMProblem(
+            points=_tensor(raw.points, f, device),
+            points_mask=_tensor(raw.points_mask, b, device),
+            normals=_tensor(normals, f, device),
+            planar_idx=_tensor(planar_idx, i64, device),
+            planar_mask=_tensor(planar_mask, b, device),
+            edge_idx=_tensor(edge_idx, i64, device),
+            edge_mask=_tensor(edge_mask, b, device),
+            initial_poses=_tensor(raw.initial_poses, f, device),
+            odom_i=_tensor(raw.odom_i, i64, device),
+            odom_j=_tensor(raw.odom_j, i64, device),
+            odom_trans=_tensor(raw.odom_trans, f, device),
+            odom_rot=_tensor(raw.odom_rot, f, device),
+        )
 
 
 _INDEX_FIELDS = ("planar_idx", "edge_idx", "odom_i", "odom_j")

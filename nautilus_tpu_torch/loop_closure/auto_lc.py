@@ -26,7 +26,6 @@ list of scans for one source, on the pair engine.
 from __future__ import annotations
 
 import dataclasses
-import time
 from pathlib import Path
 from typing import List, Tuple
 
@@ -37,6 +36,7 @@ from nautilus_tpu_torch.kernels.csm import (CSMParams, csm_match_batch,
                                             csm_match_pairs, wrap_angle)
 from nautilus_tpu_torch.loop_closure.candidate import get_lc_candidates
 from nautilus_tpu_torch.loop_closure.matcher import LCMatcher
+from nautilus_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass
@@ -46,8 +46,6 @@ class AutoLCReport:
     csm_results: List[Tuple[int, int, float, np.ndarray]]  # (s, t, score, [tx ty th])
     accepted: List[Tuple[int, int]]
     applied: bool = False
-    # Wall seconds per stage: candidates / gate / csm / resolve.
-    stage_walls: dict = dataclasses.field(default_factory=dict)
     # The re-solve's SolveStats when closures were applied, else None.
     resolve_stats: object = None
     # Which engine scan-matched the gated pairs: "stage" on one device,
@@ -288,15 +286,16 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     report = AutoLCReport(candidates=[], gated_pairs=[], csm_results=[],
                           accepted=[])
 
-    t0 = time.perf_counter()
-    candidates = get_lc_candidates(state)
-    if cfg.get("keyframe_local_uncertainty_filtering", False):
-        from nautilus_tpu_torch.loop_closure.keyframes import (
-            candidate_uncertainty_ok)
-        ok = candidate_uncertainty_ok(state, cfg, candidates)
-        candidates = [c for c, o in zip(candidates, ok) if o]
+    # The four stage spans (lc.candidates, lc.gate, lc.csm, lc.resolve)
+    # each end right after a host read of their results.
+    with span("lc.candidates"):
+        candidates = get_lc_candidates(state)
+        if cfg.get("keyframe_local_uncertainty_filtering", False):
+            from nautilus_tpu_torch.loop_closure.keyframes import (
+                candidate_uncertainty_ok)
+            ok = candidate_uncertainty_ok(state, cfg, candidates)
+            candidates = [c for c, o in zip(candidates, ok) if o]
     report.candidates = candidates
-    report.stage_walls["candidates"] = time.perf_counter() - t0
     if verbose:
         print(f"Auto-LC: {len(candidates)} candidate scans.")
     if solver.visualizer is not None:
@@ -304,26 +303,26 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     if len(candidates) < 2:
         return report
 
-    t0 = time.perf_counter()
-    matcher = LCMatcher.from_solver(solver)
-    base_range = float(cfg.get("lc_base_max_range", 3.5))
-    range_scaling = float(cfg.get("lc_max_range_scaling", 0.01))
-    pos = np.asarray(state.solution[:, :2])
-    cand_arr = np.asarray(candidates, np.int64)
-    cand_pos = pos[cand_arr]
-    seen = set()
-    for idx, s in enumerate(candidates):
-        d = np.linalg.norm(cand_pos - cand_pos[idx], axis=1)
-        limit = base_range + range_scaling * np.abs(cand_arr - s)
-        within = [int(t) for t in cand_arr[(d <= limit) & (cand_arr != s)]]
-        if not within:
-            continue
-        for t in matcher.get_possible_matches(s, within):
-            key = (min(s, t), max(s, t))
-            if key not in seen:
-                seen.add(key)
-                report.gated_pairs.append(key)
-    report.stage_walls["gate"] = time.perf_counter() - t0
+    with span("lc.gate"):
+        matcher = LCMatcher.from_solver(solver)
+        base_range = float(cfg.get("lc_base_max_range", 3.5))
+        range_scaling = float(cfg.get("lc_max_range_scaling", 0.01))
+        pos = np.asarray(state.solution[:, :2])
+        cand_arr = np.asarray(candidates, np.int64)
+        cand_pos = pos[cand_arr]
+        seen = set()
+        for idx, s in enumerate(candidates):
+            d = np.linalg.norm(cand_pos - cand_pos[idx], axis=1)
+            limit = base_range + range_scaling * np.abs(cand_arr - s)
+            within = [int(t)
+                      for t in cand_arr[(d <= limit) & (cand_arr != s)]]
+            if not within:
+                continue
+            for t in matcher.get_possible_matches(s, within):
+                key = (min(s, t), max(s, t))
+                if key not in seen:
+                    seen.add(key)
+                    report.gated_pairs.append(key)
     if verbose:
         print(f"Auto-LC: {len(report.gated_pairs)} pairs pass the "
               f"chi-square gate.")
@@ -342,12 +341,13 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
     if not report.gated_pairs:
         return report
 
-    t0 = time.perf_counter()
     mesh = solver.mesh
     report.csm_engine = "stage" if mesh is None else "sharded pair"
-    scores, transforms, best_tt, _ = match_gated_pairs(
-        state, report.gated_pairs, csm_params or _csm_params_from_config(cfg),
-        int(cfg.get("lc_match_window_size", 0)), mesh=mesh)
+    with span("lc.csm"):
+        scores, transforms, best_tt, _ = match_gated_pairs(
+            state, report.gated_pairs,
+            csm_params or _csm_params_from_config(cfg),
+            int(cfg.get("lc_match_window_size", 0)), mesh=mesh)
     threshold = float(cfg.csm_score_threshold)
     wt = float(cfg.lc_translation_weight)
     wr = float(cfg.lc_rotation_weight)
@@ -366,13 +366,11 @@ def solve_auto_lc(solver, apply: bool = True, verbose: bool = True,
             if apply:
                 state.lc_factors.append(
                     relative_pose_factor(state, s, t, transforms[k], wt, wr))
-    report.stage_walls["csm"] = time.perf_counter() - t0
     if verbose:
         print(f"Auto-LC: {len(report.accepted)} matches above CSM score "
               f"threshold ({threshold}).")
     if apply and report.accepted:
-        t0 = time.perf_counter()
-        report.resolve_stats = solver.solve_max_window()
-        report.stage_walls["resolve"] = time.perf_counter() - t0
+        with span("lc.resolve"):
+            report.resolve_stats = solver.solve_max_window()
         report.applied = True
     return report

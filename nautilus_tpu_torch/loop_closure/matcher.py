@@ -11,7 +11,8 @@ nautilus_tpu/loop_closure/matcher.py).
 - A pair passes the gate when its score is < 5000 (the reference's
   threshold).
 
-Pairs sharing a gauge pose share one factorization and one multi-RHS solve.
+Pairs sharing a gauge pose share one factorization and one multi-RHS solve
+(an ``lc.gate.factor`` span each, utils/timer).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from nautilus_tpu_torch.solve.band import band_inverse_node_columns
 from nautilus_tpu_torch.solve.factors import (BandedSystem, FactorGraph,
                                               assemble_banded_system,
                                               assemble_normal_equations)
+from nautilus_tpu_torch.utils.timer import span
 
 CHI_SQUARE_THRESHOLD = 5000.0
 
@@ -110,12 +112,13 @@ class LCMatcher:
         x = solver._current_x()
         w = window if window is not None else \
             solver.config.get_int("lidar_constraint_amount_max")
-        use_band = solver._band_eligible()
-        graph = solver.build_graph(x, w, exclude_long_range=use_band)
-        if use_band:
-            return cls(solver.state, graph, layout=solver._layout,
-                       lr=solver._long_range_factors())
-        return cls(solver.state, graph)
+        with span("lc.gate.build"):
+            use_band = solver._band_eligible()
+            graph = solver.build_graph(x, w, exclude_long_range=use_band)
+            if use_band:
+                return cls(solver.state, graph, layout=solver._layout,
+                           lr=solver._long_range_factors())
+            return cls(solver.state, graph)
 
     def chi_square_score(self, source: int, target: int
                          ) -> Tuple[np.ndarray, float]:
@@ -132,13 +135,15 @@ class LCMatcher:
                 groups.setdefault(max(min(s, t) - 1, 0), []).append((s, t))
         dev = self.state.problem.device
         for fixed_pose, group in groups.items():
-            ss = torch.as_tensor([g[0] for g in group], device=dev)
-            tt = torch.as_tensor([g[1] for g in group], device=dev)
-            if self._sys is not None:
-                blocks = _cross_cov_blocks_band(self._sys, fixed_pose, ss, tt)
-            else:
-                blocks = _cross_cov_blocks(self.H, fixed_pose, ss, tt)
-            blocks = blocks.cpu().numpy().astype(np.float64)
+            with span("lc.gate.factor"):
+                ss = torch.as_tensor([g[0] for g in group], device=dev)
+                tt = torch.as_tensor([g[1] for g in group], device=dev)
+                if self._sys is not None:
+                    blocks = _cross_cov_blocks_band(self._sys, fixed_pose,
+                                                    ss, tt)
+                else:
+                    blocks = _cross_cov_blocks(self.H, fixed_pose, ss, tt)
+                blocks = blocks.cpu().numpy().astype(np.float64)
             if not np.all(np.isfinite(blocks)):
                 warnings.warn(
                     f"the covariance factorization gauged at pose "

@@ -43,6 +43,7 @@ from nautilus_tpu_torch.solve.factors import (FactorGraph,
 from nautilus_tpu_torch.solve.lm import (LMParams, LMResult, _read_flags,
                                          _trust_region_update,
                                          mean_step_metric)
+from nautilus_tpu_torch.utils.timer import span
 
 
 class CGParams(NamedTuple):
@@ -226,29 +227,35 @@ def lm_solve_cg(x0, graph: FactorGraph, fixed_dof,
     it = inner = 0
     converged = done = False
     while not done and it < params.max_iterations:
-        eta, g_norm = forcing(g, g_prev_norm)
-        dx, d, ok, k = solve_damped(terms, g, diag, sysg, radius, dx_prev,
-                                    eta)
-        inner += k
-        x_new = x + dx.reshape(m, 3)
-        new_cost = total_cost(x_new, graph)
-        hdx = _hvp(terms, dx, n_dof)
-        model_decrease = -(torch.dot(g * free, dx)
-                           + 0.5 * torch.dot(dx, hdx * free + d * dx))
-        finite = ok & torch.all(torch.isfinite(dx)) & torch.isfinite(new_cost)
-        accept, radius, divisor, converged = _trust_region_update(
-            cost, new_cost, model_decrease, finite, radius, divisor,
-            mean_step_metric(dx, params), params)
-        accepted, converged, radius_ok = _read_flags(accept, converged,
-                                                     radius, params)
-        if accepted:
-            # The next linearization is nearby: start its CG from this step,
-            # and move the forcing ratio's gradient norm.
-            x, dx_prev, g_prev_norm = x_new, dx, g_norm
-            terms, g, diag, cost, sysg = linearize(x)
-        else:
-            # The next system is damped harder: start from zero.
-            dx_prev = torch.zeros_like(dx)
+        with span("lm.step"):
+            with span("lm.factor"):
+                eta, g_norm = forcing(g, g_prev_norm)
+                dx, d, ok, k = solve_damped(terms, g, diag, sysg, radius,
+                                            dx_prev, eta)
+            inner += k
+            x_new = x + dx.reshape(m, 3)
+            with span("lm.assemble"):
+                new_cost = total_cost(x_new, graph)
+            with span("lm.decide"):
+                hdx = _hvp(terms, dx, n_dof)
+                model_decrease = -(torch.dot(g * free, dx)
+                                   + 0.5 * torch.dot(dx, hdx * free + d * dx))
+                finite = ok & torch.all(torch.isfinite(dx)) \
+                    & torch.isfinite(new_cost)
+                accept, radius, divisor, converged = _trust_region_update(
+                    cost, new_cost, model_decrease, finite, radius, divisor,
+                    mean_step_metric(dx, params), params)
+                accepted, converged, radius_ok = _read_flags(
+                    accept, converged, radius, params)
+            if accepted:
+                # The next linearization is nearby: start its CG from this
+                # step, and move the forcing ratio's gradient norm.
+                x, dx_prev, g_prev_norm = x_new, dx, g_norm
+                with span("lm.assemble"):
+                    terms, g, diag, cost, sysg = linearize(x)
+            else:
+                # The next system is damped harder: start from zero.
+                dx_prev = torch.zeros_like(dx)
         it += 1
         done = converged or not radius_ok
     return LMResult(x=x, cost=float(cost), initial_cost=float(cost0),

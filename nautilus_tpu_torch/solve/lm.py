@@ -13,10 +13,16 @@ options, exactly as the JAX package does:
 
 The trust-region arithmetic runs on the device in the dtype of x (float32
 by default, float64 for a float64 problem), as in the JAX package; each
-iteration reads the accept/stop flags on the host once.  A failed Cholesky
-or a non-finite trial counts as a rejected step.  One copy of the schedule
-(``_trust_region_update``, ``mean_step_metric``) serves the band loop, the
-dense loop below and the matrix-free loop of solve/cg.py.
+iteration reads the accept/stop flags on the host once.  Each iteration is
+an ``lm.step`` span (utils/timer) holding ``lm.factor`` (the damped solve),
+``lm.assemble`` (the trial assembly or cost) and ``lm.decide`` (model
+decrease, trust region, the flags read).  The band loop's step ends at the
+read; the dense and CG loops re-linearize after an accepted step's read,
+inside the step, so the device tail of that work falls in the next step.
+A failed Cholesky or a non-finite trial counts as a rejected step.  One
+copy of the schedule (``_trust_region_update``, ``mean_step_metric``)
+serves the band loop, the dense loop below and the matrix-free loop of
+solve/cg.py.
 
 The dense loop holds H [3M, 3M]: gauge fixing zeroes the fixed rows and
 columns and puts a unit diagonal there, which equals holding those
@@ -34,6 +40,7 @@ from nautilus_tpu_torch.solve.band import band_matvec, solve_damped_banded
 from nautilus_tpu_torch.solve.factors import (assemble_banded_system,
                                               assemble_normal_equations,
                                               total_cost)
+from nautilus_tpu_torch.utils.timer import span
 
 
 class LMParams(NamedTuple):
@@ -137,20 +144,28 @@ def lm_loop(x0, assemble_fn, cost_fn, fixed_dof,
     it = 0
     converged = done = False
     while not done and it < params.max_iterations:
-        dx, Hg, gg, ok = _solve_damped(H, g, fixed_dof, radius, params)
-        x_new = x + dx.reshape(x.shape)
-        new_cost = cost_fn(x_new)
-        # Model decrease of 0.5 |r + J dx|^2: -(g.dx + 0.5 dx.H.dx).
-        model_decrease = -(torch.dot(gg, dx) + 0.5 * torch.dot(dx, Hg @ dx))
-        finite = ok & torch.all(torch.isfinite(dx)) & torch.isfinite(new_cost)
-        accept, radius, divisor, converged = _trust_region_update(
-            cost, new_cost, model_decrease, finite, radius, divisor,
-            mean_step_metric(dx, params), params)
-        accepted, converged, radius_ok = _read_flags(accept, converged,
-                                                     radius, params)
-        if accepted:
-            x = x_new
-            H, g, cost = assemble_fn(x)
+        with span("lm.step"):
+            with span("lm.factor"):
+                dx, Hg, gg, ok = _solve_damped(H, g, fixed_dof, radius,
+                                               params)
+            x_new = x + dx.reshape(x.shape)
+            with span("lm.assemble"):
+                new_cost = cost_fn(x_new)
+            with span("lm.decide"):
+                # Model decrease of 0.5 |r + J dx|^2: -(g.dx + 0.5 dx.H.dx).
+                model_decrease = -(torch.dot(gg, dx)
+                                   + 0.5 * torch.dot(dx, Hg @ dx))
+                finite = ok & torch.all(torch.isfinite(dx)) \
+                    & torch.isfinite(new_cost)
+                accept, radius, divisor, converged = _trust_region_update(
+                    cost, new_cost, model_decrease, finite, radius, divisor,
+                    mean_step_metric(dx, params), params)
+                accepted, converged, radius_ok = _read_flags(
+                    accept, converged, radius, params)
+            if accepted:
+                x = x_new
+                with span("lm.assemble"):
+                    H, g, cost = assemble_fn(x)
         it += 1
         done = converged or not radius_ok
         if iteration_callback is not None:
@@ -210,26 +225,32 @@ def lm_loop_banded(x0, assemble_fn, fixed_dof,
     it = 0
     converged = done = False
     while not done and it < params.max_iterations:
-        dx, sysg, ok = solve_damped_banded(sys, fixed_dof, radius, params,
-                                           superblock, method)
-        x_new = x + dx
-        sys_new, new_cost = assemble_fn(x_new)
-        # Model decrease of 0.5 |r + J dx|^2: -(g.dx + 0.5 dx.H.dx), with the
-        # line-pose rows (after the N nodes) summed apart, as in JAX.
-        n = sysg.n
-        Hdx = band_matvec(sysg, dx)
-        gdx = torch.sum(sysg.g * dx[:n])
-        dHd = torch.sum(dx[:n] * Hdx[:n])
-        if sysg.num_lines:
-            gdx = gdx + torch.sum(sysg.gl * dx[n:])
-            dHd = dHd + torch.sum(dx[n:] * Hdx[n:])
-        model_decrease = -(gdx + 0.5 * dHd)
-        finite = ok & torch.all(torch.isfinite(dx)) & torch.isfinite(new_cost)
-        accept, radius, divisor, converged = _trust_region_update(
-            cost, new_cost, model_decrease, finite, radius, divisor,
-            mean_step_metric(dx, params), params)
-        accepted, converged, radius_ok = _read_flags(accept, converged,
-                                                     radius, params)
+        with span("lm.step"):
+            with span("lm.factor"):
+                dx, sysg, ok = solve_damped_banded(sys, fixed_dof, radius,
+                                                   params, superblock, method)
+            x_new = x + dx
+            with span("lm.assemble"):
+                sys_new, new_cost = assemble_fn(x_new)
+            with span("lm.decide"):
+                # Model decrease of 0.5 |r + J dx|^2: -(g.dx + 0.5 dx.H.dx),
+                # with the line-pose rows (after the N nodes) summed apart,
+                # as in JAX.
+                n = sysg.n
+                Hdx = band_matvec(sysg, dx)
+                gdx = torch.sum(sysg.g * dx[:n])
+                dHd = torch.sum(dx[:n] * Hdx[:n])
+                if sysg.num_lines:
+                    gdx = gdx + torch.sum(sysg.gl * dx[n:])
+                    dHd = dHd + torch.sum(dx[n:] * Hdx[n:])
+                model_decrease = -(gdx + 0.5 * dHd)
+                finite = ok & torch.all(torch.isfinite(dx)) \
+                    & torch.isfinite(new_cost)
+                accept, radius, divisor, converged = _trust_region_update(
+                    cost, new_cost, model_decrease, finite, radius, divisor,
+                    mean_step_metric(dx, params), params)
+                accepted, converged, radius_ok = _read_flags(
+                    accept, converged, radius, params)
         if accepted:
             x, sys, cost = x_new, sys_new, new_cost
         it += 1

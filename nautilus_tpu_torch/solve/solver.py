@@ -53,6 +53,7 @@ from nautilus_tpu_torch.solve.factors import (BandLayout, Correspondences,
                                               OdomFactors, make_odom_factors)
 from nautilus_tpu_torch.solve.lm import (LMParams, LMResult, lm_solve,
                                          lm_solve_banded, lm_solve_stepped)
+from nautilus_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass
@@ -170,9 +171,12 @@ class Solver:
         self.assembly = assembly
         n = state.num_nodes
         w_max = config.get_int("lidar_constraint_amount_max")
-        self.pairs = correspond.make_pairs(n, w_max)
-        self._pair_src = torch.as_tensor(self.pairs.src, device=self.device)
-        self._pair_tgt = torch.as_tensor(self.pairs.tgt, device=self.device)
+        with span("solver.init"):
+            self.pairs = correspond.make_pairs(n, w_max)
+            self._pair_src = torch.as_tensor(self.pairs.src,
+                                             device=self.device)
+            self._pair_tgt = torch.as_tensor(self.pairs.tgt,
+                                             device=self.device)
         w_eff = min(w_max, n - 1)
         self._layout = BandLayout(n, w_eff) if w_eff >= 1 else None
 
@@ -339,33 +343,37 @@ class Solver:
         hitl = self._hitl_factors()
         for window in range(w_min, w_max + 1):
             t0 = time.perf_counter()
-            graph = self.build_graph(x, window, optimization_type, odom=odom,
-                                     hitl=hitl)
-            if kind == "band":
-                res: LMResult = lm_solve_banded(
-                    x, graph, fixed, params=self.lm_params,
-                    layout=self._layout, lr=lr,
-                    analytic=self._analytic_mode())
-            elif kind == "cg":
-                from nautilus_tpu_torch.solve.cg import lm_solve_cg
-                bg = None if band_odom is None else \
-                    graph._replace(odom=band_odom)
-                res = lm_solve_cg(x, graph, fixed, params=self.lm_params,
-                                  band_graph=bg,
-                                  layout=None if bg is None else self._layout)
-            elif stepped:
-                self._viz_window = window
-                res = lm_solve_stepped(x, graph, fixed, params=self.lm_params,
-                                       iteration_callback=self._iteration_viz,
-                                       layout=self._layout)
-            else:
-                res = lm_solve(x, graph, fixed, params=self.lm_params,
-                               layout=self._layout)
-            x = res.x
-            if not bool(torch.all(torch.isfinite(x))):
-                raise FloatingPointError(
-                    f"Non-finite poses after window {window}; "
-                    f"check odometry/scan inputs.")
+            # Ends after the isfinite read, so it holds the window's device
+            # work.
+            with span("solve.window"):
+                graph = self.build_graph(x, window, optimization_type,
+                                         odom=odom, hitl=hitl)
+                if kind == "band":
+                    res: LMResult = lm_solve_banded(
+                        x, graph, fixed, params=self.lm_params,
+                        layout=self._layout, lr=lr,
+                        analytic=self._analytic_mode())
+                elif kind == "cg":
+                    from nautilus_tpu_torch.solve.cg import lm_solve_cg
+                    bg = None if band_odom is None else \
+                        graph._replace(odom=band_odom)
+                    res = lm_solve_cg(
+                        x, graph, fixed, params=self.lm_params, band_graph=bg,
+                        layout=None if bg is None else self._layout)
+                elif stepped:
+                    self._viz_window = window
+                    res = lm_solve_stepped(
+                        x, graph, fixed, params=self.lm_params,
+                        iteration_callback=self._iteration_viz,
+                        layout=self._layout)
+                else:
+                    res = lm_solve(x, graph, fixed, params=self.lm_params,
+                                   layout=self._layout)
+                x = res.x
+                if not bool(torch.all(torch.isfinite(x))):
+                    raise FloatingPointError(
+                        f"Non-finite poses after window {window}; "
+                        f"check odometry/scan inputs.")
             stats.windows.append(WindowStats(
                 window=window, initial_cost=res.initial_cost,
                 final_cost=res.cost, iterations=res.iterations,

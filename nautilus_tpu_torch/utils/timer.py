@@ -4,8 +4,12 @@
 - ``CumulativeFunctionTimer``: sums the wall time of many invocations and
   prints their mean at exit;
 - ``RateLoop``: paces a loop at a fixed rate;
-- ``device_trace``: names a region in profiler traces (a
-  ``torch.profiler.record_function`` span, and an NVTX range on the card);
+- ``span``, ``tracing``, ``take``: the program's tracer.  With tracing on,
+  ``span(name)`` records (name, parent index, start ns, end ns) in memory;
+  ``take()`` hands the records over and clears them.  While a profiler session records, a span
+  is also a ``torch.profiler.record_function`` region, tracing on or off,
+  so a profiled run's timeline carries the program's names.  With tracing
+  off and no profiler, a span is one shared no-op context manager;
 - ``profile_to``: records a ``torch.profiler`` session (host and, where a
   card is present, device activity) and writes it as a Chrome trace;
   ``device_busy_s`` reads from such a trace, or from the session itself, how
@@ -19,7 +23,9 @@ import contextlib
 import json
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
 
 TRACE_FILE = "trace.json"
 
@@ -108,20 +114,73 @@ class RateLoop:
             self._next = now + self.period_s
 
 
-@contextlib.contextmanager
-def device_trace(name: str):
-    """Name the enclosed region in profiler traces: a record_function span,
-    and on a CUDA machine an NVTX range."""
-    import torch
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+class Span(NamedTuple):
+    """One finished span.  parent: the index of the enclosing span in the
+    same ``take()``, or -1.  Times are Unix-epoch ns (``time.time_ns``),
+    the clock of the profiler's event times."""
+
+    name: str
+    parent: int
+    t0_ns: int
+    t1_ns: int
+
+
+_NOOP = contextlib.nullcontext()
+_on = False
+_spans: List[list] = []     # [name, parent, t0_ns, t1_ns] in start order
+_open: List[int] = []       # indices of the spans open now, innermost last
+
+
+class _Recorded:
+    """A span while tracing is on: an in-memory record, inside a
+    record_function region of the same name while a profiler records."""
+
+    __slots__ = ("name", "region", "record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.region = (torch.profiler.record_function(self.name)
+                       if torch.autograd._profiler_enabled() else _NOOP)
+        self.region.__enter__()
+        t0 = time.time_ns()
+        self.record = [self.name, _open[-1] if _open else -1, t0, 0]
+        _open.append(len(_spans))
+        _spans.append(self.record)
+        return self
+
+    def __exit__(self, *exc):
+        self.record[3] = time.time_ns()
+        _open.pop()
+        return self.region.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager naming the enclosed work (see the module notes).
+    It never synchronises the card: a span that ends right after a host
+    read holds its device work, any other span only the host's."""
+    if _on:
+        return _Recorded(name)
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NOOP
+
+
+def tracing(on: bool = True):
+    """Switch the in-memory tracer on or off; records made so far stay
+    until ``take()``."""
+    global _on
+    _on = bool(on)
+
+
+def take() -> List[Span]:
+    """The spans recorded since the last take(), which are cleared.  Call
+    it outside any span: a parent index counts from this take's first
+    span."""
+    spans = [Span(*r) for r in _spans]
+    _spans.clear()
+    return spans
 
 
 @contextlib.contextmanager
@@ -132,7 +191,6 @@ def profile_to(log_dir=None):
     A solve of a thousand poses records millions of events, hundreds of MB
     as a trace file: measure such a region in memory (log_dir None and
     ``device_busy_s`` on the yielded object)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -156,8 +214,8 @@ def device_busy_s(source) -> float:
 
     source: a Chrome trace file written by profile_to, or the profile
     object profile_to yielded (read in memory; regions named with
-    device_trace, which the trace also shows on the card's timeline, are
-    not work and are left out)."""
+    span, which the trace also shows on the card's timeline, are not work
+    and are left out)."""
     if isinstance(source, (str, Path)):
         events = json.loads(Path(source).read_text())["traceEvents"]
         spans = sorted(

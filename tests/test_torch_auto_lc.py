@@ -18,6 +18,7 @@ from nautilus_tpu_torch.loop_closure.auto_lc import (relative_pose_factor,
                                                      solve_auto_lc)
 from nautilus_tpu_torch.loop_closure.keyframes import candidate_uncertainty_ok
 from nautilus_tpu_torch.solve.solver import Solver
+from nautilus_tpu_torch.utils import timer
 
 CFG = """
 translation_weight=1
@@ -49,14 +50,20 @@ def runs():
     tsolver.solve_slam()
     solved_t = ts.solution.copy()
     before = csm_coarse.fused_coarse.launches
-    trep = solve_auto_lc(tsolver, apply=True, verbose=False,
-                         csm_params=CSMParams(scan_range=10.0, high_res=0.05))
+    timer.tracing(True)
+    try:
+        trep = solve_auto_lc(
+            tsolver, apply=True, verbose=False,
+            csm_params=CSMParams(scan_range=10.0, high_res=0.05))
+    finally:
+        timer.tracing(False)
+    stages = [sp.name for sp in timer.take() if sp.parent < 0]
     assert csm_coarse.fused_coarse.launches == before   # CPU: plain version
-    return cfg, (js, jrep, solved_j), (ts, trep, solved_t), gt
+    return cfg, (js, jrep, solved_j), (ts, trep, solved_t), gt, stages
 
 
 def test_auto_lc_sets_match_jax(runs):
-    cfg, (js, jrep, _), (ts, trep, _), gt = runs
+    cfg, (js, jrep, _), (ts, trep, _), gt, stages = runs
     assert trep.candidates == jrep.candidates
     assert trep.gated_pairs == jrep.gated_pairs
     assert trep.accepted == jrep.accepted
@@ -69,14 +76,14 @@ def test_auto_lc_sets_match_jax(runs):
         np.testing.assert_allclose(sc, sc2, atol=1e-4)
         np.testing.assert_allclose(tr, tr2, atol=0.05 + 1e-6)
     assert trep.applied and len(ts.lc_factors) == len(trep.accepted)
-    assert set(trep.stage_walls) >= {"candidates", "gate", "csm", "resolve"}
+    assert stages == ["lc.candidates", "lc.gate", "lc.csm", "lc.resolve"]
     # The report carries the re-solve's stats: one window, the max one.
     assert [w.window for w in trep.resolve_stats.windows] == [
         cfg.get_int("lidar_constraint_amount_max")]
 
 
 def test_auto_lc_poses_match_jax(runs):
-    _, (js, _, solved_j), (ts, _, solved_t), gt = runs
+    _, (js, _, solved_j), (ts, _, solved_t), gt, _ = runs
     # Float32 solves in two frameworks: summation order and
     # transcendental last bits.
     np.testing.assert_allclose(solved_t, solved_j, atol=1e-3, rtol=0)
@@ -86,7 +93,7 @@ def test_auto_lc_poses_match_jax(runs):
 
 
 def test_candidate_uncertainty_matches_jax(runs):
-    cfg, (js, _, _), (ts, _, _), _ = runs
+    cfg, (js, _, _), (ts, _, _), _, _ = runs
     nodes = list(range(0, 32, 3))
     np.testing.assert_array_equal(candidate_uncertainty_ok(ts, cfg, nodes),
                                   jax_uncertainty_ok(js, cfg, nodes))
@@ -105,7 +112,7 @@ def test_relative_pose_factor_identity():
 def test_descriptor_gate_keeps_a_subset_of_the_chi_square_gate(runs):
     """use_descriptor_gate=True keeps a subset of the pairs that pass the
     chi-square gate at the same solution."""
-    cfg, _, (_, trep, solved_t), _ = runs
+    cfg, _, (_, trep, solved_t), _, _ = runs
     ts, _ = reverse_traversal_problem(3, device="cpu")
     ts.solution = solved_t.copy()
     rep = solve_auto_lc(Solver(ts, cfg), apply=False, verbose=False,
@@ -120,7 +127,7 @@ def test_auto_lc_past_the_closure_cap_takes_the_dense_route(runs):
     """lr_factor_cap below the accepted closures: the gate runs on the band
     (no closure yet), the re-solve resolves to dense, and the poses match
     the Woodbury re-solve of the same closures."""
-    cfg, _, (ts_band, trep, solved_t), _ = runs
+    cfg, _, (ts_band, trep, solved_t), _, _ = runs
     assert trep.accepted
     ts, _ = reverse_traversal_problem(3, device="cpu")
     ts.solution = solved_t.copy()

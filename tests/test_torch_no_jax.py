@@ -177,7 +177,7 @@ scores, _ = csm_match_grouped(p.points, p.points_mask, [1, 2], [0, 0], params)
 assert np.all(np.isfinite(scores))
 assert polynomial.solve_quadratic(1.0, -3.0, 2.0) == [1.0, 2.0]
 with timer.profile_to(tmp / "prof"):
-    with timer.device_trace("span"):
+    with timer.span("span"):
         torch.ones(4) + 1
 assert (tmp / "prof" / timer.TRACE_FILE).exists()
 bad = [m for m, mod in sys.modules.items() if mod is not None and (

@@ -60,7 +60,7 @@ def test_rate_loop_paces_and_restarts_after_a_slow_pass():
 
 def test_profile_to_writes_a_chrome_trace_with_named_spans(tmp_path):
     with ttimer.profile_to(tmp_path / "prof") as prof:
-        with ttimer.device_trace("nautilus-span"):
+        with ttimer.span("nautilus-span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     trace = tmp_path / "prof" / ttimer.TRACE_FILE
     events = json.loads(trace.read_text())["traceEvents"]
