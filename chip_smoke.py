@@ -102,7 +102,13 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the CPU scan-match twin against the stage engine (fused coarse kernel)
    and the pair engine (correlation kernel) on bench.py's 4 CPU-leg pairs
    and 8 gated pairs (scores within 2e-3, transforms within 2e-2 and the
-   finest grid step), counting both kernels' launches.
+   finest grid step), counting both kernels' launches;
+18. the band scan's CUDA graphs (solve/band.py): solve_damped_banded and
+   band_inverse_node_columns on phase 6's closed-map system at N=1000
+   (Woodbury columns; the gate's columns of three poses), eager scans
+   against graph replays, wall ms per call (median of 10), equal bit for
+   bit, with the replays' share of the graph cache's calls, its captures,
+   the graphs it holds and any key whose capture failed.
 
 Each path (6 to 17) starts with every launch count at 0 and reads them
 when it ends.  Exits non-zero on any failure.  The last line is one JSON object
@@ -709,6 +715,66 @@ def scan_vs_cr(label, solver, system):
         fail(f"{label}: scan and CR steps differ by {rel} relative")
     return {"n": sys_.n, "scan_ms": ms["scan"], "cr_ms": ms["cr"],
             "rel_diff": rel}
+
+
+def band_graph_phase(solver, system, reps=10):
+    """Phase 18: each band route on ``system`` (final_window_system's
+    triple) eagerly, with band._scan replaced by the eager call, then
+    through the graph cache with the tracer on.  Every graph result must
+    equal the eager one bit for bit, and no capture may have failed."""
+    import statistics
+    from unittest import mock
+    import torch
+    from nautilus_tpu_torch.solve import band
+    from nautilus_tpu_torch.utils import timer
+    sys_, fixed, radius = system
+    n = sys_.n
+    dev = sys_.diag.device
+    # A gate group: gauged at pose 99, the columns of poses 500-502.
+    gauge = torch.repeat_interleave(
+        torch.arange(n + sys_.num_lines, device=dev) == 99, 3)
+    cols = torch.arange(1500, 1509, device=dev)
+    calls = {
+        "solve_damped_banded": lambda: band.solve_damped_banded(
+            sys_, fixed, radius, solver.lm_params)[0],
+        "band_inverse_node_columns": lambda: band.band_inverse_node_columns(
+            sys_, gauge, cols)}
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    out = {}
+    for name, call in calls.items():
+        with mock.patch.object(band, "_scan", lambda fn, *a: fn(*a)):
+            ref = call()
+            eager = [timed(call)[1] for _ in range(reps)]
+        timer.take()
+        timer.tracing(True)
+        try:
+            graphed = [timed(call) for _ in range(reps + 1)]
+        finally:
+            timer.tracing(False)
+        spans = [sp.name for sp in timer.take()]
+        captures = spans.count("band.graph.capture")
+        replays = spans.count("band.graph.replay")
+        same = all(torch.equal(x.view(ints[x.dtype]), ref.view(ints[x.dtype]))
+                   for x, _ in graphed)
+        ms_e = statistics.median(eager) * 1e3
+        ms_g = statistics.median(t for _, t in graphed[1:]) * 1e3
+        print(f"  {name}: N={n} w={sys_.w} Woodbury columns={sys_.rank_lr} "
+              f"lines={sys_.num_lines}: eager {ms_e!r} ms, graph {ms_g!r} ms "
+              f"(median of {reps}, wall with the device drained; "
+              f"{ms_e / ms_g!r}x); bitwise equal {same}; in {reps + 1} "
+              f"calls {captures} captures and {replays} replays, replay "
+              f"share {replays / (replays + captures)!r}", flush=True)
+        if not same:
+            fail(f"{name}: the graph replay differs from the eager scan")
+        out[name] = {"eager_ms": ms_e, "graph_ms": ms_g,
+                     "captures": captures, "replays": replays}
+    cache = band._GRAPHS
+    failed = sorted(str(k[1:]) for k in cache.failed)
+    print(f"  graph cache: {len(cache.graphs)} graphs held (limit "
+          f"{band.GRAPH_CACHE_SIZE}), failed keys {failed}", flush=True)
+    if cache.failed:
+        fail("a band graph capture failed; those keys ran eagerly")
+    return out
 
 
 def same_messages(a, b):
@@ -2117,7 +2183,7 @@ def main():
         print(f"{title} [{time.perf_counter() - t_all!r} s into the run]",
               flush=True)
 
-    banner("[1/17] environment")
+    banner("[1/18] environment")
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
     from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
     card = card_line()
@@ -2140,7 +2206,7 @@ def main():
         return {fn.__name__: fn.launches for fn in counters}
 
     # -- 2. build ------------------------------------------------------------
-    banner("[2/17] build: one nvcc per kernel source, started together")
+    banner("[2/18] build: one nvcc per kernel source, started together")
     sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
     t0 = time.perf_counter()
     _build.build_all(sources)
@@ -2154,7 +2220,7 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    banner(f"[3/17] fused coarse kernel against plain (bench shapes at C=8 "
+    banner(f"[3/18] fused coarse kernel against plain (bench shapes at C=8 "
            f"and at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
            f"gdc_2020 range)")
     cases = [kernel_case(dev, scan_range=30.0),
@@ -2163,7 +2229,7 @@ def main():
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    banner(f"[4/17] correlation kernel against plain (the pair engine's batch "
+    banner(f"[4/18] correlation kernel against plain (the pair engine's batch "
            f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
            f"table in global memory)")
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
@@ -2174,7 +2240,7 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    banner("[5/17] small-input reference: card vs CPU")
+    banner("[5/18] small-input reference: card vs CPU")
     small = small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -2184,7 +2250,7 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    banner("[6/17] main path: make_problem(1000, building, 720 beams, seed 1) "
+    banner("[6/18] main path: make_problem(1000, building, 720 beams, seed 1) "
            "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses")
     from nautilus_tpu_torch.core.luaconf import load_config
     from nautilus_tpu_torch.ingest.synthetic import make_problem
@@ -2253,7 +2319,7 @@ def main():
     system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    banner("[7/17] pair engine: bench.py's CSM leg, then the main path's "
+    banner("[7/18] pair engine: bench.py's CSM leg, then the main path's "
            "gated pairs through engine='pair' against engine='stage'")
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
@@ -2299,7 +2365,7 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    banner(f"[8/17] HITL: bench.py's scripted constraint (lines "
+    banner(f"[8/18] HITL: bench.py's scripted constraint (lines "
            f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map")
     from nautilus_tpu_torch.cli import apply_hitl_line
     from nautilus_tpu_torch.solve.hitl import hitl_cost
@@ -2356,14 +2422,14 @@ def main():
              f"({cost_start} -> {hitl_costs[0]})")
 
     # -- 9. bag path ------------------------------------------------------------
-    banner("[9/17] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+    banner("[9/18] bag path: bench.py's GDC-scale bag (1000 poses, building, "
            "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
            "--write --vectorize and auto_lc=true")
     with tempfile.TemporaryDirectory() as tmp:
         bag_path_phase(Path(tmp), zero_counts, read_counts)
 
     # -- 10. CR backend -----------------------------------------------------------
-    banner("[10/17] CR backend: make_problem(5000, building, 720 beams, "
+    banner("[10/18] CR backend: make_problem(5000, building, 720 beams, "
            "seed 1) -> solve_slam, then scan against CR at N=1000 and N=5000")
     solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
     scan_vs_cr("closed map of phase 6", solver, system_1000)
@@ -2372,7 +2438,7 @@ def main():
     del solver_5000
 
     # -- 11. dense fallback -----------------------------------------------------
-    banner(f"[11/17] dense fallback: phase 6's input with lr_factor_cap="
+    banner(f"[11/18] dense fallback: phase 6's input with lr_factor_cap="
            f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
            "on dense Cholesky; then the gate's dense engine against its band "
            "engine")
@@ -2382,13 +2448,13 @@ def main():
                                    read_counts)
 
     # -- 12. the other routes ---------------------------------------------------
-    banner("[12/17] other routes on the same input: dense sweep, CG on the "
+    banner("[12/18] other routes on the same input: dense sweep, CG on the "
            "closed graph, float64 from make_problem to the closed map")
     phase12 = other_routes_phase(cfg, state, x0, gt, stats, phase11, dev,
                                  zero_counts, read_counts)
 
     # -- 13. the small routes ---------------------------------------------------
-    banner("[13/17] small routes at the main path's width: optimization type "
+    banner("[13/18] small routes at the main path's width: optimization type "
            "ALL, Hough normals, the descriptor gate on phase 6's gated pairs")
     zero_counts()
     all_route_phase(cfg, dev, state, x0)
@@ -2398,7 +2464,7 @@ def main():
                                          read_counts)
 
     # -- 14. the mesh ---------------------------------------------------------
-    banner(f"[14/17] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
+    banner(f"[14/18] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
            "one card, the sharded CSM batch against phase 7's pair engine, "
            "--devices 2 through the CLI")
     phase6["stats"] = stats
@@ -2406,7 +2472,7 @@ def main():
                                   (s_pr, tr_pr, best_pr), zero_counts)
 
     # -- 15. the visualizer, the bridge, the library calls ---------------------
-    banner("[15/17] the visualizer and the ROS command bridge on phase 6's "
+    banner("[15/18] the visualizer and the ROS command bridge on phase 6's "
            "input, best_scan_match and csm_match_grouped on its gated pairs, "
            "the device busy share of its solve and auto-LC")
     zero_counts()
@@ -2416,13 +2482,13 @@ def main():
         read_counts)
 
     # -- 16. the trainer ------------------------------------------------------
-    banner("[16/17] the trainer: train(300 steps, seed 0) on the card against "
+    banner("[16/18] the trainer: train(300 steps, seed 0) on the card against "
            "the CPU, then the descriptor gate with its weights")
     trainer_phase(dev, fresh_state(state, x_solved), list(report.gated_pairs),
                   float(cfg.get("lc_match_threshold", 0.5)), shipped_gate)
 
     # -- 17. the referee ------------------------------------------------------
-    banner("[17/17] the float64 CPU referee: phase 6's input solved on the "
+    banner("[17/18] the float64 CPU referee: phase 6's input solved on the "
            "CPU against the band, dense and float64 sweeps; phase 5's HITL "
            "step; the CPU scan-match twin against both engines")
     solves = {"band": (x_solved, t_solve), **phase12["solves"]}
@@ -2430,6 +2496,12 @@ def main():
     referee_launches = referee_phase(cfg, state, x0, gt, solves, small,
                                      at_gate, list(report.gated_pairs), card,
                                      read_counts)
+
+    # -- 18. the band scan's CUDA graphs -------------------------------------
+    banner("[18/18] the band scan's CUDA graphs: solve_damped_banded and "
+           "band_inverse_node_columns at N=1000 on phase 6's closed map, "
+           "eager against graph replays")
+    band_graph_phase(solver, system_1000)
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")

@@ -22,15 +22,24 @@ Vectors over all dofs are [N + L, 3]: the N nodes, then the L line poses.
 
 A failed Cholesky does not raise: ``cholesky_ex`` reports it, and the
 caller treats the step as rejected (the JAX package sees NaNs there).
+
+On a card the scan's factorization and substitution, a chain of about a
+thousand small launches whose shapes repeat call after call, are replayed
+from CUDA graphs captured once per shape (``_GraphCache``): the same
+cuSOLVER and cuBLAS kernels with the same arguments, so the same bits.
+CPU tensors and cyclic reduction run eagerly.
 """
 
 from __future__ import annotations
 
+import warnings
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 
 from nautilus_tpu_torch.solve.factors import BandedSystem
+from nautilus_tpu_torch.utils.timer import span
 
 
 def band_matvec(sys: BandedSystem, v):
@@ -160,6 +169,104 @@ def _tridiag_solve(Ls, Cs, r):
     return xs
 
 
+# Graphs kept per process.  Closed maps of 1000 poses meet one factor key
+# and a solve key per right-hand-side count (the gradient, the gate's
+# unit columns, the re-solve's Woodbury columns, the HITL border): 12 keys
+# over the GDC 2020 recordings, each graph about 5 MB of device memory.
+GRAPH_CACHE_SIZE = 64
+
+
+class _Graph(NamedTuple):
+    """One captured call: its static inputs, the graph, its outputs."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    outputs: tuple
+
+    def replay(self, inputs):
+        """The outputs for ``inputs``, as fresh tensors that a later
+        replay does not overwrite."""
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.graph.replay()
+        return tuple(o.clone() for o in self.outputs)
+
+
+class _GraphCache:
+    """CUDA graphs of the scan's functions, captured once per (function,
+    input shapes, dtype, device) and replayed after that; the least
+    recently used is dropped past GRAPH_CACHE_SIZE.  A key whose capture
+    fails runs eagerly from then on (with a warning)."""
+
+    def __init__(self):
+        self.graphs = OrderedDict()
+        self.failed = set()
+        self._streams = {}
+
+    def __call__(self, fn, *inputs):
+        key = (fn, tuple(t.shape for t in inputs), inputs[0].dtype,
+               inputs[0].device)
+        if key in self.failed:
+            return fn(*inputs)
+        entry = self.graphs.get(key)
+        if entry is None:
+            with span("band.graph.capture"):
+                try:
+                    entry = self._capture(fn, inputs)
+                except RuntimeError as e:
+                    warnings.warn(f"CUDA graph capture of {fn.__name__} at "
+                                  f"{key[1:]} failed ({e}); it runs eagerly",
+                                  stacklevel=3)
+                    self.failed.add(key)
+                    return fn(*inputs)
+            self.graphs[key] = entry
+            if len(self.graphs) > GRAPH_CACHE_SIZE:
+                self.graphs.popitem(last=False)
+        else:
+            self.graphs.move_to_end(key)
+        with span("band.graph.replay"):
+            out = entry.replay(inputs)
+        return out if len(out) > 1 else out[0]
+
+    def _capture(self, fn, inputs) -> _Graph:
+        """Warm fn up once on a side stream (cuBLAS and cuSOLVER handles,
+        workspaces), then capture it there on contiguous copies of the
+        inputs.  CUDAGraph.capture_begin rather than torch.cuda.graph,
+        whose entry empties the allocator's cache: the rest of the map
+        would then go back to cudaMalloc for its memory."""
+        dev = inputs[0].device
+        statics = tuple(t.clone(memory_format=torch.contiguous_format)
+                        for t in inputs)
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            fn(*statics)
+            graph.capture_begin()
+            try:
+                outputs = fn(*statics)
+            finally:
+                graph.capture_end()
+        current.wait_stream(stream)
+        if isinstance(outputs, torch.Tensor):
+            outputs = (outputs,)
+        return _Graph(graph, statics, tuple(outputs))
+
+
+_GRAPHS = _GraphCache()
+
+
+def _scan(fn, *inputs):
+    """fn(*inputs): replayed from a cached CUDA graph on a card, eager on
+    the CPU."""
+    if inputs[0].is_cuda:
+        return _GRAPHS(fn, *inputs)
+    return fn(*inputs)
+
+
 class CRLevel(NamedTuple):
     """One cyclic-reduction level.  Block row i holds
     B_i x_{i-1} + A_i x_i + B_{i+1}^T x_{i+1} = r_i (B_0 = B_K = 0); 'odd'
@@ -277,7 +384,7 @@ def band_factor(sys: BandedSystem, s: int, method: str = "scan"):
         return cr_factor_tridiag(A, B)
     if method != "scan":
         raise ValueError(f"method must be 'scan' or 'cr', got {method!r}")
-    Ls, Cs, ok = _tridiag_cholesky(A, B)
+    Ls, Cs, ok = _scan(_tridiag_cholesky, A, B)
     return BandFactorization(Ls, Cs, K, pad_n, s, ok)
 
 
@@ -293,7 +400,7 @@ def band_apply_inverse(fac, r):
     if isinstance(fac, CRFactorization):
         x = cr_solve_tridiag(fac, rk)
     else:
-        x = _tridiag_solve(fac.Ls, fac.Cs, rk)
+        x = _scan(_tridiag_solve, fac.Ls, fac.Cs, rk)
     x = x.reshape(K * fac.s, 3, m)[:n]
     return x[..., 0] if squeeze else x
 

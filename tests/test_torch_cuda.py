@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the hand-written CSM kernels (the fused
 coarse stage and the correlation of the pair engine) against their plain
 PyTorch versions, at the main path's shapes and at the edges of their
-launch plans (kernels/plan.py).
+launch plans (kernels/plan.py); the band scan's CUDA graphs against the
+eager scan, bit for bit (solve/band.py).
 
 The file imports no jax, so it also runs where jax is not installed (the
 repository's conftest imports jax, hence ``--noconftest``):
@@ -16,6 +17,10 @@ import pytest
 import torch
 
 from nautilus_tpu_torch.kernels import csm, csm_coarse, csm_correlate
+from nautilus_tpu_torch.solve import band
+from nautilus_tpu_torch.solve.factors import BandedSystem
+from nautilus_tpu_torch.solve.lm import LMParams
+from nautilus_tpu_torch.utils import timer
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +412,160 @@ def test_hough_normals_on_card_match_cpu(dev):
     assert int((err > 1e-4).sum()) <= 1e-4 * err.numel()
     np.testing.assert_allclose(
         torch.linalg.vector_norm(out, dim=-1)[msk].numpy(), 1.0, atol=1e-5)
+
+
+# The scan at the main path's size: 1000 poses, w = 10, superblock 16, so
+# K = 63 superblocks of S = 48 dofs.
+K_SCAN, S_SCAN = 63, 48
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """A fresh graph cache for the test."""
+    cache = band._GraphCache()
+    monkeypatch.setattr(band, "_GRAPHS", cache)
+    return cache
+
+
+def _tridiag(dev, dtype, seed, bad_block=None):
+    """A block-tridiagonal SPD system (A, B with B_0 = 0); bad_block
+    negates one diagonal block, so its Cholesky fails."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(K_SCAN, S_SCAN, S_SCAN, generator=g, dtype=torch.float64)
+    A = A @ A.mT / S_SCAN + 8 * torch.eye(S_SCAN, dtype=torch.float64)
+    B = torch.randn(K_SCAN, S_SCAN, S_SCAN, generator=g,
+                    dtype=torch.float64) / S_SCAN ** 0.5
+    B[0] = 0
+    if bad_block is not None:
+        A[bad_block] = -A[bad_block]
+    return A.to(dev, dtype), B.to(dev, dtype)
+
+
+def _rhs(dev, dtype, m, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(K_SCAN, S_SCAN, m, generator=g,
+                       dtype=torch.float64).to(dev, dtype)
+
+
+def _same_bits(a, b):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
+                                              b.view(ints[b.dtype]))
+
+
+def _graph_scan(A, B, r):
+    Ls, Cs, ok = band._scan(band._tridiag_cholesky, A, B)
+    return Ls, Cs, ok, band._scan(band._tridiag_solve, Ls, Cs, r)
+
+
+def _eager_scan(A, B, r):
+    Ls, Cs, ok = band._tridiag_cholesky(A, B)
+    return Ls, Cs, ok, band._tridiag_solve(Ls, Cs, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 3, 30])
+def test_band_graph_scan_is_the_eager_scan_on_card(dev, graphs, dtype, m):
+    """The capture's first replay and a later one give the eager scan's
+    factors and solution bit for bit."""
+    A, B = _tridiag(dev, dtype, seed=m)
+    r = _rhs(dev, dtype, m, seed=100 + m)
+    Le, Ce, oke, xe = _eager_scan(A, B, r)
+    for _ in range(2):
+        Ls, Cs, ok, x = _graph_scan(A, B, r)
+        assert bool(ok) and bool(oke)
+        assert _same_bits(Ls, Le) and _same_bits(Cs, Ce)
+        assert _same_bits(x, xe)
+    assert len(graphs.graphs) == 2 and not graphs.failed
+
+
+def test_band_graph_replays_new_inputs_and_keeps_old_outputs_on_card(
+        dev, graphs):
+    """Two systems in a row each get their own answer, and a factorization
+    handed out earlier keeps its values across later replays."""
+    f32 = torch.float32
+    (A1, B1), (A2, B2) = _tridiag(dev, f32, 1), _tridiag(dev, f32, 2)
+    r1, r2 = _rhs(dev, f32, 3, 11), _rhs(dev, f32, 3, 12)
+    first = _graph_scan(A1, B1, r1)
+    held = [t.clone() for t in first]
+    second = _graph_scan(A2, B2, r2)
+    for got, want in zip(second, _eager_scan(A2, B2, r2)):
+        assert torch.equal(got, want)
+    for got, want in zip(first, _eager_scan(A1, B1, r1)):
+        assert torch.equal(got, want)
+    for got, want in zip(first, held):
+        assert torch.equal(got, want)
+    # The earlier factorization solved after the later one's replay.
+    x1 = band._scan(band._tridiag_solve, first[0], first[1], r2)
+    assert _same_bits(x1, band._tridiag_solve(held[0], held[1], r2))
+
+
+def test_band_graph_reports_a_failed_cholesky_on_card(dev, graphs):
+    """A non-SPD block, replayed through a graph captured on an SPD
+    system, gives ok False and the eager scan's bits."""
+    f32 = torch.float32
+    _graph_scan(*_tridiag(dev, f32, 3), _rhs(dev, f32, 1, 13))
+    A, B = _tridiag(dev, f32, 4, bad_block=5)
+    r = _rhs(dev, f32, 1, 14)
+    Ls, Cs, ok, x = _graph_scan(A, B, r)
+    Le, Ce, oke, xe = _eager_scan(A, B, r)
+    assert not bool(ok) and not bool(oke)
+    assert _same_bits(Ls, Le) and _same_bits(Cs, Ce) and _same_bits(x, xe)
+    assert len(graphs.graphs) == 2
+
+
+def test_band_graph_spans_on_card(dev, graphs):
+    """band.graph.capture once per key, band.graph.replay on every call."""
+    f32 = torch.float32
+    A, B = _tridiag(dev, f32, 5)
+    timer.take()
+    timer.tracing(True)
+    try:
+        for _ in range(3):
+            Ls, Cs, _ = band._scan(band._tridiag_cholesky, A, B)
+            for m in (1, 3):
+                band._scan(band._tridiag_solve, Ls, Cs, _rhs(dev, f32, m, m))
+    finally:
+        timer.tracing(False)
+    names = [sp.name for sp in timer.take()]
+    assert names.count("band.graph.capture") == 3
+    assert names.count("band.graph.replay") == 9
+    assert names[:2] == ["band.graph.capture", "band.graph.replay"]
+
+
+def _band_system(dev, n=1000, w=10, R=12, L=1, seed=0):
+    """A diagonally dominant band system of the main path's size with
+    Woodbury columns and a HITL border."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g)
+    diag = rnd(n, 3, 3)
+    diag = diag @ diag.mT + 8 * w * torch.eye(3)
+    sys = BandedSystem(diag=diag, band=0.5 * rnd(w, n, 3, 3), g=rnd(n, 3),
+                       U=0.3 * rnd(3 * n, R), C=0.2 * rnd(n, L, 3, 3),
+                       E=10 * torch.eye(3).repeat(L, 1, 1), gl=rnd(L, 3))
+    return BandedSystem(*[t.to(dev) for t in sys])
+
+
+@pytest.mark.parametrize("call", ["solve_damped_banded",
+                                  "band_inverse_node_columns"])
+def test_band_routes_with_graphs_are_eager_on_card(dev, graphs, monkeypatch,
+                                                   call):
+    """The band routes at N = 1000 (Woodbury columns, a HITL border) give
+    the eager scan's bits."""
+    sys = _band_system(dev)
+    fixed = torch.zeros(3 * (sys.n + 1), dtype=torch.bool, device=dev)
+    fixed[:3] = True
+    if call == "solve_damped_banded":
+        def run():
+            return band.solve_damped_banded(
+                sys, fixed, torch.tensor(1e2, device=dev), LMParams())[0]
+    else:
+        def run():
+            return band.band_inverse_node_columns(
+                sys, fixed, torch.arange(30, 39, device=dev))
+    graphed = [run(), run()]
+    monkeypatch.setattr(band, "_scan", lambda fn, *inputs: fn(*inputs))
+    eager = run()
+    assert torch.isfinite(eager).all()
+    assert all(_same_bits(x, eager) for x in graphed)
+    assert graphs.graphs and not graphs.failed
