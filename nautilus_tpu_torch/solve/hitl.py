@@ -14,6 +14,12 @@ nautilus_tpu/solve/hitl.py).
   window, from the current solution) used for the first HITL solve.
 - ``hitl_callback``: swap in solved odometry, add the constraint, solve,
   restore the ingest-time odometry, solve again.
+
+Spans (utils/timer): ``hitl.step`` around a whole callback, ``hitl.select``
+around the selection and ``hitl.solve`` around each of the two solves are
+closed (each ends right after a host read the code makes: the selection's
+counts and point copies, the solve's write-back of x); ``hitl.build``
+labels the constraint rows' build.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from nautilus_tpu_torch.core import geometry as geo
 from nautilus_tpu_torch.core.problem import SLAMState
 from nautilus_tpu_torch.solve.factors import (HitlFactors, empty_hitl,
                                               hitl_residual)
+from nautilus_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass
@@ -107,6 +114,11 @@ def build_hitl_factors(state: SLAMState, dtype=None) -> HitlFactors:
     """All constraints as one HitlFactors batch on the problem's device, in
     ``dtype`` (None: the dtype of the problem's clouds): one row per
     selected pose, padded to the longest row's point count."""
+    with span("hitl.build"):
+        return _hitl_rows(state, dtype)
+
+
+def _hitl_rows(state: SLAMState, dtype) -> HitlFactors:
     dev = state.problem.device
     dtype = dtype or state.problem.points.dtype
     rows = []
@@ -190,21 +202,27 @@ def hitl_callback(solver, msg: HitlSlamInputMsg, verbose: bool = True):
     """One curation step on a Solver: swap in solved odometry, add the
     constraint and its line pose, solve, restore the ingest-time odometry
     and solve again.  Returns the two SolveStats."""
-    state: SLAMState = solver.state
-    state.odometry_factors = solved_odom_factors(
-        state, solver.config.get_int("lidar_constraint_amount_max"))
-    constraint = select_poses(state, msg, solver.config)
-    if verbose:
-        print(f"Found {len(constraint.line_a_poses)} poses for the first line.")
-        print(f"Found {len(constraint.line_b_poses)} poses for the second line.")
-    state.hitl_constraints.append(constraint)
-    state.line_poses = np.concatenate(
-        [state.line_poses, np.zeros((1, 3), np.float64)], axis=0)
-    if verbose:
-        print("Solving problem with HITL constraints...")
-    stats1 = solver.solve_slam()
-    state.odometry_factors = state.initial_odometry_factors
-    if verbose:
-        print("Solving problem with initial odometry constraints...")
-    stats2 = solver.solve_slam()
+    with span("hitl.step"):
+        state: SLAMState = solver.state
+        state.odometry_factors = solved_odom_factors(
+            state, solver.config.get_int("lidar_constraint_amount_max"))
+        with span("hitl.select"):
+            constraint = select_poses(state, msg, solver.config)
+        if verbose:
+            print(f"Found {len(constraint.line_a_poses)} poses for the "
+                  "first line.")
+            print(f"Found {len(constraint.line_b_poses)} poses for the "
+                  "second line.")
+        state.hitl_constraints.append(constraint)
+        state.line_poses = np.concatenate(
+            [state.line_poses, np.zeros((1, 3), np.float64)], axis=0)
+        if verbose:
+            print("Solving problem with HITL constraints...")
+        with span("hitl.solve"):
+            stats1 = solver.solve_slam()
+        state.odometry_factors = state.initial_odometry_factors
+        if verbose:
+            print("Solving problem with initial odometry constraints...")
+        with span("hitl.solve"):
+            stats2 = solver.solve_slam()
     return stats1, stats2
