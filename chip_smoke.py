@@ -7,9 +7,9 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the TF32 flags the package turns off;
-2. build: compiles both CUDA kernels (kernels/csrc/csm_coarse.cu and
-   csm_correlate.cu), one nvcc each, started together, with nvcc time and
-   ptxas registers and spills;
+2. build: compiles the three CUDA kernel sources (kernels/csrc/
+   csm_coarse.cu, csm_correlate.cu and band_moments.cu), one nvcc each,
+   started together, with nvcc time and ptxas registers and spills;
 3. fused coarse kernel against plain: the kernel and its plain PyTorch
    version on the same inputs at the benchmark shapes (C=8, and the main
    path's chunk of PAIR_CHUNK pairs) and at the gdc_2020 scan range, with
@@ -108,10 +108,21 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    (Woodbury columns; the gate's columns of three poses), eager scans
    against graph replays, wall ms per call (median of 10), equal bit for
    bit, with the replays' share of the graph cache's calls, its captures,
-   the graphs it holds and any key whose capture failed.
+   the graphs it holds and any key whose capture failed;
+19. the band assembly's correspondence moments (kernels/band_moments.py):
+   the kernel against its plain version on phase 6's window-10 graph and
+   on a 350-pose building at 1800 beams (the plain version's bits below 64
+   slots a pair, else each output within 1e-5 of its largest entry; two
+   launches bit for bit; the launch counter one up per call), with device
+   ms and kernels a call from a profiler trace, host ms to issue a call,
+   CUDA-event ms, and the bound (bytes at the HBM rate, operations at
+   33.5e12/s).
 
 Each path (6 to 17) starts with every launch count at 0 and reads them
-when it ends.  Exits non-zero on any failure.  The last line is one JSON object
+when it ends; the paths that run the band LM's moment form on the card
+(6, 8 to 11, 12's float64 run, 13's ALL type) must launch the band
+moments kernel, and the mesh's controller reports its count (the ranks
+assemble by scatter).  Exits non-zero on any failure.  The last line is one JSON object
 {"ok": true, "device": {...}}; the line before it holds the card's name and
 power limit, and the one before that the kernels' JSON record (launches on
 their path; times, bound and library call at the main path's shapes; the
@@ -2159,10 +2170,167 @@ def referee_phase(cfg, state, x0, gt, solves, small, at_gate, gated_pairs,
     referee_csm(cfg, state, at_gate, gated_pairs, say)
     counts = read_counts()
     say(f"kernel launches in the referee phase: {counts}")
-    for name, launches in counts.items():
-        if launches == 0:
+    for name in ("fused_coarse", "correlate"):
+        if counts[name] == 0:
             fail(f"the referee phase never launched {name}")
     return counts
+
+
+# Phase 19: the band assembly's correspondence moments (kernels/
+# band_moments.py).  Operations per slot as csrc/band_moments.cu makes them,
+# each multiply, add or subtract one: 28 for the point's geometry, then 2 +
+# 2 x 50 for a planar slot's two normals and 42 for an edge slot.  Per
+# pair: the warp's shuffle tree (5 adds a sum: 30 planar sums, 13 edge),
+# the block algebra (15 adds planar, 18 operations edge), and 33 adds of
+# the slice adds (12 diag and gd entries twice, 9 band entries once).
+MOMENT_SLOT_OPS = {"planar": 130, "edge": 70}
+MOMENT_PAIR_OPS = {"planar": 30 * 5 + 15 + 33, "edge": 13 * 5 + 18 + 33}
+
+
+def band_moments_work(x, graph, layout):
+    """Bytes and floating-point operations of one moment-form assembly:
+    every input byte read once (x, the batches' indices, points, normals
+    and masks), every output byte written once, and the operations the
+    kernel makes (MOMENT_SLOT_OPS, MOMENT_PAIR_OPS, each batch's cost sum);
+    its bound at the HBM rate and at 33.5e12 lone operations a second."""
+    item = x.element_size()
+    nbytes = x.numel() * item
+    ops = 0
+    for kind, b in (("planar", graph.planar), ("edge", graph.edge)):
+        q = b.src.shape[0]
+        if q == 0:
+            continue
+        s = b.src_pts.shape[1]
+        arrays = 4 if kind == "planar" else 2
+        nbytes += 2 * q * 8 + q * s * (1 + arrays * 2 * item)
+        ops += q * (s * MOMENT_SLOT_OPS[kind] + MOMENT_PAIR_OPS[kind] + 1)
+    n, w = layout.n, layout.w
+    nbytes += (9 * n + 9 * w * n + 3 * n + 1) * item
+    ms, by = bound_ms(nbytes, ops / F32_ADDS_PER_S * 1e3)
+    return {"bytes": nbytes, "ops": ops, "bound_ms": ms, "bound_by": by}
+
+
+def moments_case(dev, label, n, beams, scan_range, solver=None):
+    """(label, x, graph, layout): the band assembly's inputs at a cell's
+    shape, the window-10 graph at ``solver``'s poses (a make_problem
+    building of n poses, beams and scan_range when None)."""
+    from nautilus_tpu_torch.core.luaconf import load_config
+    from nautilus_tpu_torch.ingest.synthetic import make_problem
+    from nautilus_tpu_torch.solve.solver import Solver
+    if solver is None:
+        state, _ = make_problem(n, "building", num_beams=beams,
+                                max_range=scan_range, seed=1,
+                                odom_noise_trans=0.02, odom_noise_rot=0.008,
+                                device=dev)
+        solver = Solver(state, load_config(ROOT / "config"
+                                           / "default_config.lua"))
+    x = solver._current_x()
+    return label, x, solver.build_graph(x, solver._layout.w), solver._layout
+
+
+def device_per_call(fn, reps, names=None):
+    """(device ms, kernels) per call of fn, from a torch.profiler trace of
+    reps calls: the summed durations and count of the card's kernels (those
+    whose name holds one of ``names``, or all)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns, count = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                and (names is None or any(k in e.name() for k in names))):
+            ns += e.end_ns() - e.start_ns()
+            count += 1
+    return ns * 1e-6 / reps, count / reps
+
+
+def host_ms(fn, reps):
+    """Host milliseconds to issue one call of fn (no synchronisation inside
+    the loop: the card runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def band_moments_phase(dev, cases, reps=50):
+    """The moment-form band assembly: kernel against plain on each case
+    (moments_case), relative to the largest entry of each output: the plain
+    version's bits below 64 slots a pair (the kernel adds in torch.sum's
+    order there), else within 1e-5; two launches bit for bit, the launch
+    counter one up per call; device ms and kernels per call (profiler), host
+    ms to issue a call, CUDA-event ms, and the bound.  Returns the
+    records."""
+    import torch
+    from nautilus_tpu_torch.kernels.band_moments import band_moments
+    from nautilus_tpu_torch.solve import factors
+    records = []
+    for label, x, graph, layout in cases:
+        def run():
+            return factors._accumulate_banded(x, graph, layout)
+
+        def plain():
+            return factors._accumulate_banded_reference(x, graph, layout)
+        before = band_moments.launches
+        got, want, again = run(), plain(), run()
+        counted = band_moments.launches - before
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        exact = max(graph.planar.src_pts.shape[1],
+                    graph.edge.src_pts.shape[1]) < 64
+        dev_ms, kernels = device_per_call(
+            run, reps, ("pair_moments", "band_assemble"))
+        plain_dev_ms, plain_kernels = device_per_call(plain, 5)
+        ms, plain_ms = cuda_ms(run, reps), cuda_ms(plain, 5)
+        host, plain_host = host_ms(run, reps), host_ms(plain, 5)
+        work = band_moments_work(x, graph, layout)
+        q = graph.planar.src.shape[0]
+        print(f"  {label}: n={layout.n} w={layout.w} Q={q} "
+              f"S={graph.planar.src_pts.shape[1]}+"
+              f"{graph.edge.src_pts.shape[1]} {x.dtype}: rel_err={err!r} "
+              f"(bit for bit required: {exact}) bitwise_repeat={same} "
+              f"counted={counted}", flush=True)
+        print(f"    kernel device_ms={dev_ms!r} ({kernels!r} kernels a call) "
+              f"event_ms={ms!r} host_ms={host!r}; plain device_ms="
+              f"{plain_dev_ms!r} ({plain_kernels!r} kernels a call) "
+              f"event_ms={plain_ms!r} host_ms={plain_host!r}", flush=True)
+        print(f"    bound_ms={work['bound_ms']!r} ({work['bound_by']}: "
+              f"{work['bytes']} bytes at {HBM_BYTES_PER_S!r}/s, "
+              f"{work['ops']} operations at {F32_ADDS_PER_S!r}/s) "
+              f"share_of_bound={work['bound_ms'] / dev_ms!r}; library_ms="
+              f"None (no PyTorch call computes the moments)", flush=True)
+        if not err <= (0.0 if exact else 1e-5):
+            fail(f"band_moments disagrees with plain on {label}: {err}")
+        if not same:
+            fail(f"two band_moments launches differ on {label}")
+        if counted != 2:
+            fail(f"band_moments counted {counted} launches for 2 calls on "
+                 f"{label}")
+        if kernels > 2:
+            fail(f"band_moments ran {kernels} kernels a call on {label}")
+        records.append({"case": label, "rel_err": err, "ms": dev_ms,
+                        "event_ms": ms, "host_ms": host,
+                        "plain_ms": plain_dev_ms, "plain_host_ms": plain_host,
+                        "plain_kernels": plain_kernels,
+                        "bound_ms": work["bound_ms"],
+                        "bound_by": work["bound_by"],
+                        "share_of_bound": work["bound_ms"] / dev_ms,
+                        "library_ms": None})
+    return records
 
 
 def main():
@@ -2183,9 +2351,10 @@ def main():
         print(f"{title} [{time.perf_counter() - t_all!r} s into the run]",
               flush=True)
 
-    banner("[1/18] environment")
+    banner("[1/19] environment")
     import nautilus_tpu_torch  # noqa: F401  (turns TF32 off)
-    from nautilus_tpu_torch.kernels import _build, csm_coarse, csm_correlate
+    from nautilus_tpu_torch.kernels import (_build, band_moments, csm_coarse,
+                                            csm_correlate)
     card = card_line()
     print(f"  python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -2194,7 +2363,8 @@ def main():
         fail("TF32 is enabled after importing nautilus_tpu_torch")
     print("  tf32: cuda.matmul.allow_tf32=False cudnn.allow_tf32=False")
     dev = torch.device("cuda")
-    counters = (csm_coarse.fused_coarse, csm_correlate.correlate)
+    counters = (csm_coarse.fused_coarse, csm_correlate.correlate,
+                band_moments.band_moments)
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -2205,9 +2375,21 @@ def main():
         torch.cuda.synchronize()
         return {fn.__name__: fn.launches for fn in counters}
 
+    moment_paths = {}
+
+    def need_moments(phase):
+        """The band moments kernel's launches since the last zero_counts,
+        printed and required above 0: the phase's path assembles the band
+        LM's moment form on the card."""
+        k = read_counts()["band_moments"]
+        print(f"  band_moments launches in phase {phase}: {k}", flush=True)
+        if k == 0:
+            fail(f"phase {phase} never launched the band moments kernel")
+        moment_paths[str(phase)] = k
+
     # -- 2. build ------------------------------------------------------------
-    banner("[2/18] build: one nvcc per kernel source, started together")
-    sources = [csm_coarse.SOURCE, csm_correlate.SOURCE]
+    banner("[2/19] build: one nvcc per kernel source, started together")
+    sources = [csm_coarse.SOURCE, csm_correlate.SOURCE, band_moments.SOURCE]
     t0 = time.perf_counter()
     _build.build_all(sources)
     print(f"  built {len(sources)} kernels in {time.perf_counter() - t0!r} s")
@@ -2220,7 +2402,7 @@ def main():
 
     # -- 3. fused coarse kernel against plain ---------------------------------
     from nautilus_tpu_torch.kernels.csm import PAIR_BATCH, PAIR_CHUNK
-    banner(f"[3/18] fused coarse kernel against plain (bench shapes at C=8 "
+    banner(f"[3/19] fused coarse kernel against plain (bench shapes at C=8 "
            f"and at the main path's chunk of C={PAIR_CHUNK} pairs, then the "
            f"gdc_2020 range)")
     cases = [kernel_case(dev, scan_range=30.0),
@@ -2229,7 +2411,7 @@ def main():
     main_shape = cases[1]
 
     # -- 4. correlation kernel against plain ----------------------------------
-    banner(f"[4/18] correlation kernel against plain (the pair engine's batch "
+    banner(f"[4/19] correlation kernel against plain (the pair engine's batch "
            f"of B={PAIR_BATCH} pairs at 30 m, 12 m and 8.5 m; an integer "
            f"table in global memory)")
     corr_cases = [correlate_case(dev, 30.0, PAIR_BATCH, seed=4),
@@ -2240,7 +2422,7 @@ def main():
     corr_shape = corr_cases[0]
 
     # -- 5. small-input reference -------------------------------------------
-    banner("[5/18] small-input reference: card vs CPU")
+    banner("[5/19] small-input reference: card vs CPU")
     small = small_reference(
         "translation_weight=1\nrotation_weight=1\nlc_translation_weight=3\n"
         "lc_rotation_weight=3\nlidar_constraint_amount_min=1\n"
@@ -2250,7 +2432,7 @@ def main():
         "accuracy_change_stop_threshold=0.0001\n")
 
     # -- 6. main path ---------------------------------------------------------
-    banner("[6/18] main path: make_problem(1000, building, 720 beams, seed 1) "
+    banner("[6/19] main path: make_problem(1000, building, 720 beams, seed 1) "
            "-> solve_slam -> solve_auto_lc(apply=True) -> write_poses")
     from nautilus_tpu_torch.core.luaconf import load_config
     from nautilus_tpu_torch.ingest.synthetic import make_problem
@@ -2311,6 +2493,7 @@ def main():
         fail("pose file read-back does not match the solution")
     if launches == 0:
         fail("the main path never launched the fused coarse kernel")
+    need_moments(6)
     if not report.applied:
         fail("auto-LC applied no closure")
     if not ate_closed < ate_odom:
@@ -2319,7 +2502,7 @@ def main():
     system_1000 = final_window_system(solver)
 
     # -- 7. pair engine ---------------------------------------------------------
-    banner("[7/18] pair engine: bench.py's CSM leg, then the main path's "
+    banner("[7/19] pair engine: bench.py's CSM leg, then the main path's "
            "gated pairs through engine='pair' against engine='stage'")
     zero_counts()
     bench_csm_leg(state, ("stage", "pair"))
@@ -2365,7 +2548,7 @@ def main():
         fail("the pair-engine path never launched the correlation kernel")
 
     # -- 8. HITL ----------------------------------------------------------------
-    banner(f"[8/18] HITL: bench.py's scripted constraint (lines "
+    banner(f"[8/19] HITL: bench.py's scripted constraint (lines "
            f"{HITL_LINES}, hitl_line_width={HITL_WIDTH}) on the closed map")
     from nautilus_tpu_torch.cli import apply_hitl_line
     from nautilus_tpu_torch.solve.hitl import hitl_cost
@@ -2392,6 +2575,7 @@ def main():
     t_hitl = time.perf_counter() - t0
     solver.solve_slam = solve_slam
     hitl_counts = read_counts()
+    need_moments(8)
     c = state.hitl_constraints[0]
     start = dataclasses.replace(state, solution=sol.copy(),
                                 line_poses=np.zeros((1, 3)))
@@ -2422,23 +2606,25 @@ def main():
              f"({cost_start} -> {hitl_costs[0]})")
 
     # -- 9. bag path ------------------------------------------------------------
-    banner("[9/18] bag path: bench.py's GDC-scale bag (1000 poses, building, "
+    banner("[9/19] bag path: bench.py's GDC-scale bag (1000 poses, building, "
            "720 beams, seed 1, lz4 chunks) -> load_or_ingest -> the CLI with "
            "--write --vectorize and auto_lc=true")
     with tempfile.TemporaryDirectory() as tmp:
         bag_path_phase(Path(tmp), zero_counts, read_counts)
+    need_moments(9)
 
     # -- 10. CR backend -----------------------------------------------------------
-    banner("[10/18] CR backend: make_problem(5000, building, 720 beams, "
+    banner("[10/19] CR backend: make_problem(5000, building, 720 beams, "
            "seed 1) -> solve_slam, then scan against CR at N=1000 and N=5000")
     solver_5000 = cr_phase(cfg, dev, zero_counts, read_counts)
+    need_moments(10)
     scan_vs_cr("closed map of phase 6", solver, system_1000)
     scan_vs_cr("5000-pose solve", solver_5000,
                final_window_system(solver_5000))
     del solver_5000
 
     # -- 11. dense fallback -----------------------------------------------------
-    banner(f"[11/18] dense fallback: phase 6's input with lr_factor_cap="
+    banner(f"[11/19] dense fallback: phase 6's input with lr_factor_cap="
            f"{LR_CAP}: solve_slam -> solve_auto_lc(apply=True), the re-solve "
            "on dense Cholesky; then the gate's dense engine against its band "
            "engine")
@@ -2446,33 +2632,39 @@ def main():
               "ate_odom": ate_odom}
     phase11 = dense_fallback_phase(cfg, state, x0, gt, phase6, zero_counts,
                                    read_counts)
+    need_moments(11)
 
     # -- 12. the other routes ---------------------------------------------------
-    banner("[12/18] other routes on the same input: dense sweep, CG on the "
+    banner("[12/19] other routes on the same input: dense sweep, CG on the "
            "closed graph, float64 from make_problem to the closed map")
     phase12 = other_routes_phase(cfg, state, x0, gt, stats, phase11, dev,
                                  zero_counts, read_counts)
+    need_moments("12 (float64)")
 
     # -- 13. the small routes ---------------------------------------------------
-    banner("[13/18] small routes at the main path's width: optimization type "
+    banner("[13/19] small routes at the main path's width: optimization type "
            "ALL, Hough normals, the descriptor gate on phase 6's gated pairs")
     zero_counts()
     all_route_phase(cfg, dev, state, x0)
+    need_moments("13 (ALL)")
     hough_phase(state)
     shipped_gate = descriptor_gate_phase(cfg, fresh_state(state, x_solved),
                                          list(report.gated_pairs),
                                          read_counts)
 
     # -- 14. the mesh ---------------------------------------------------------
-    banner(f"[14/18] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
+    banner(f"[14/19] the mesh: phase 6's path over {MESH_SIZES} ranks on the "
            "one card, the sharded CSM batch against phase 7's pair engine, "
            "--devices 2 through the CLI")
     phase6["stats"] = stats
     mesh_launches = sharded_phase(cfg, dev, state, x0, gt, phase6, at_gate,
                                   (s_pr, tr_pr, best_pr), zero_counts)
+    print(f"  band_moments launches in this process: "
+          f"{read_counts()['band_moments']} (the mesh assembles by "
+          f"factors.assemble_banded_scatter on its ranks)", flush=True)
 
     # -- 15. the visualizer, the bridge, the library calls ---------------------
-    banner("[15/18] the visualizer and the ROS command bridge on phase 6's "
+    banner("[15/19] the visualizer and the ROS command bridge on phase 6's "
            "input, best_scan_match and csm_match_grouped on its gated pairs, "
            "the device busy share of its solve and auto-LC")
     zero_counts()
@@ -2482,13 +2674,13 @@ def main():
         read_counts)
 
     # -- 16. the trainer ------------------------------------------------------
-    banner("[16/18] the trainer: train(300 steps, seed 0) on the card against "
+    banner("[16/19] the trainer: train(300 steps, seed 0) on the card against "
            "the CPU, then the descriptor gate with its weights")
     trainer_phase(dev, fresh_state(state, x_solved), list(report.gated_pairs),
                   float(cfg.get("lc_match_threshold", 0.5)), shipped_gate)
 
     # -- 17. the referee ------------------------------------------------------
-    banner("[17/18] the float64 CPU referee: phase 6's input solved on the "
+    banner("[17/19] the float64 CPU referee: phase 6's input solved on the "
            "CPU against the band, dense and float64 sweeps; phase 5's HITL "
            "step; the CPU scan-match twin against both engines")
     solves = {"band": (x_solved, t_solve), **phase12["solves"]}
@@ -2498,10 +2690,18 @@ def main():
                                      read_counts)
 
     # -- 18. the band scan's CUDA graphs -------------------------------------
-    banner("[18/18] the band scan's CUDA graphs: solve_damped_banded and "
+    banner("[18/19] the band scan's CUDA graphs: solve_damped_banded and "
            "band_inverse_node_columns at N=1000 on phase 6's closed map, "
            "eager against graph replays")
     band_graph_phase(solver, system_1000)
+
+    # -- 19. the band assembly's correspondence moments ----------------------
+    banner("[19/19] the band assembly's correspondence moments: kernel "
+           "against plain at the cells' shapes (phase 6's closed map, 1000 "
+           "poses; a 350-pose building at 1800 beams and 30 m)")
+    moment_cases = band_moments_phase(dev, [
+        moments_case(dev, "gdc2020", 1000, 720, 30.0, solver=solver),
+        moments_case(dev, "lgrc2019", 350, 1800, 30.0)])
 
     if "jax" in sys.modules or any(m == "nautilus_tpu" or
                                    m.startswith("nautilus_tpu.")
@@ -2535,7 +2735,14 @@ def main():
                "HBM bytes at 3.35 TB/s",
                launches_sharded_per_rank=mesh_launches,
                launches_library_calls=library_launches,
-               launches_referee=referee_launches["correlate"])]}))
+               launches_referee=referee_launches["correlate"]),
+        record("band_moments",
+               "nautilus_tpu_torch/kernels/csrc/band_moments.cu",
+               "none (XLA fuses nautilus_tpu/solve/factors.py:_moments_*)",
+               moment_paths["6"],
+               max(c["rel_err"] for c in moment_cases), moment_cases[0],
+               "HBM bytes at 3.35 TB/s or operations at 33.5e12/s",
+               launches_by_phase=moment_paths, cases=moment_cases)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

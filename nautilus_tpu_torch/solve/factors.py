@@ -513,7 +513,18 @@ def _factor_blocks(x, spec, analytic):
 def _accumulate_banded(x, graph: FactorGraph, layout: BandLayout,
                        analytic="moments"):
     """Correspondence blocks accumulated into (diag [n,3,3], band [w,n,3,3],
-    gd [n,3], cost) by contiguous slice adds in the delta-major order."""
+    gd [n,3], cost) in the delta-major order.  The moment form on a CUDA
+    card runs the hand-written kernel (kernels/band_moments.py); CPU tensors
+    and the Jacobian form run the plain version."""
+    if analytic == "moments" and x.device.type == "cuda":
+        from nautilus_tpu_torch.kernels.band_moments import band_moments
+        return band_moments(x, graph.planar, graph.edge, layout)
+    return _accumulate_banded_reference(x, graph, layout, analytic)
+
+
+def _accumulate_banded_reference(x, graph: FactorGraph, layout: BandLayout,
+                                 analytic="moments"):
+    """_accumulate_banded in plain PyTorch, by contiguous slice adds."""
     n, w = layout.n, layout.w
     offs = layout.offsets()
     dt, dev = x.dtype, x.device

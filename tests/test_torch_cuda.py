@@ -569,3 +569,158 @@ def test_band_routes_with_graphs_are_eager_on_card(dev, graphs, monkeypatch,
     assert torch.isfinite(eager).all()
     assert all(_same_bits(x, eager) for x in graphed)
     assert graphs.graphs and not graphs.failed
+
+
+# -- the band assembly's correspondence moments (kernels/band_moments.py) ----
+
+def _moments_graph(dev, dtype, n, w, s_planar, s_edge, window, seed=0,
+                   lines=2):
+    """(x [n + lines, 3], FactorGraph, BandLayout): planar and edge batches
+    holding every pair of the delta-major layout of (n, w), scan-like:
+    source points within 15 m, target points where x puts them within
+    5 cm, unit normals, 15 % of the slots masked and every pair of delta
+    above ``window`` masked (a window below w).  A slot count of 0 leaves
+    the batch empty, as optimization type 'all' leaves the planar one."""
+    from nautilus_tpu_torch.solve.correspond import make_pairs
+    from nautilus_tpu_torch.solve.factors import (BandLayout, Correspondences,
+                                                  FactorGraph,
+                                                  make_odom_factors)
+    rng = np.random.default_rng(seed)
+    heading = np.cumsum(rng.normal(0.0, 0.05, n + lines))
+    xy = np.cumsum(0.25 * np.stack([np.cos(heading), np.sin(heading)], -1),
+                   0)
+    x = np.concatenate([xy, heading[:, None]], -1)
+    pairs = make_pairs(n, w)
+    src, tgt = pairs.src, pairs.tgt
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=dev)
+
+    def batch(S):
+        if S == 0:
+            return Correspondences(
+                t(src[:0], torch.int64), t(tgt[:0], torch.int64),
+                *[t(np.zeros((0, 1, 2))) for _ in range(4)],
+                t(np.zeros((0, 1), bool), torch.bool))
+        q = len(src)
+        p = rng.uniform(-15.0, 15.0, (q, S, 2))
+        cs, ss = np.cos(x[src, 2])[:, None], np.sin(x[src, 2])[:, None]
+        ct, st = np.cos(x[tgt, 2])[:, None], np.sin(x[tgt, 2])[:, None]
+        dx = cs * p[..., 0] - ss * p[..., 1] + (x[src, 0] - x[tgt, 0])[:, None]
+        dy = ss * p[..., 0] + cs * p[..., 1] + (x[src, 1] - x[tgt, 1])[:, None]
+        q_t = np.stack([ct * dx + st * dy, -st * dx + ct * dy], -1)
+        q_t += rng.normal(0.0, 0.05, q_t.shape)
+        a_s, a_t = rng.uniform(-np.pi, np.pi, (2, q, S))
+        mask = (rng.random((q, S)) < 0.85) & ((src - tgt) <= window)[:, None]
+        return Correspondences(
+            t(src, torch.int64), t(tgt, torch.int64), t(p), t(q_t),
+            t(np.stack([np.cos(a_s), np.sin(a_s)], -1)),
+            t(np.stack([np.cos(a_t), np.sin(a_t)], -1)), t(mask, torch.bool))
+
+    odom = make_odom_factors(np.arange(n - 1), np.arange(1, n),
+                             np.zeros((n - 1, 2)), np.zeros(n - 1), 1.0, 1.0,
+                             dev, dtype)
+    graph = FactorGraph(odom=odom, planar=batch(s_planar), edge=batch(s_edge))
+    return t(x), graph, BandLayout(n, w)
+
+
+# (n, w, planar slots, edge slots, window)
+MOMENT_CASES = {
+    "gdc2020": (1000, 10, 20, 10, 10),
+    "lgrc2019": (350, 10, 20, 10, 10),
+    # The sweep's early windows: pairs of delta above 3 all masked.
+    "window_3": (350, 10, 20, 10, 3),
+    # Optimization type 'all': no planar batch, every cloud point a slot,
+    # more slots than a warp has lanes and not a multiple of 32.
+    "all": (120, 10, 0, 77, 10),
+    # Fewer poses than lidar_constraint_amount_max: the solver's w = n - 1,
+    # and a layout whose w reaches n (its last delta has no pair).
+    "n5_w4": (5, 4, 20, 10, 4),
+    "n5_w5": (5, 5, 20, 10, 5),
+}
+
+
+def _moments_both(dev, dtype, case, seed=0):
+    from nautilus_tpu_torch.solve import factors
+    x, graph, layout = _moments_graph(dev, dtype, *MOMENT_CASES[case],
+                                      seed=seed)
+    kernel = factors._accumulate_banded(x, graph, layout)
+    plain = factors._accumulate_banded_reference(x, graph, layout)
+    torch.cuda.synchronize()
+    return kernel, plain, layout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(MOMENT_CASES))
+def test_band_moments_match_plain_on_card(dev, case, dtype):
+    """The kernel against the plain slice adds.  Each scalar term rounds as
+    the plain version's (no FMA contraction, the same cos and sin), and
+    below 64 slots a pair's slot sums and the costs add in torch.sum's
+    order: the outputs are the plain version's bits.  That order is
+    torch's private Reduce.cuh, read on torch 2.11.0+cu128: these exact
+    cases say whether it still holds after a torch upgrade.  Whole clouds
+    (the 'all' case) sum their slots in another order, so each output is
+    held to the plain one relative to its largest entry: a few roundings of
+    the largest partial sum, 1e-5 in float32 and 1e-12 in float64.  The
+    band rows no pair reaches are exactly zero in both."""
+    (diag, band_, gd, cost), plain, layout = _moments_both(dev, dtype, case)
+    exact = max(MOMENT_CASES[case][2:4]) < 64
+    rel = 0 if exact else 1e-5 if dtype == torch.float32 else 1e-12
+    for got, want in zip((diag, band_, gd, cost), plain):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= rel * scale
+    for d in range(1, layout.w + 1):
+        assert torch.all(band_[d - 1, :d] == 0)
+        assert torch.all(plain[1][d - 1, :d] == 0)
+
+
+def test_band_moments_repeat_bit_for_bit_on_card(dev):
+    """No atomics: two launches on equal inputs give equal bits."""
+    from nautilus_tpu_torch.solve import factors
+    x, graph, layout = _moments_graph(dev, torch.float32,
+                                      *MOMENT_CASES["lgrc2019"])
+    first = factors._accumulate_banded(x, graph, layout)
+    second = factors._accumulate_banded(x, graph, layout)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(first, second))
+
+
+def test_band_moments_count_one_launch_per_assembly_on_card(dev):
+    """The counter rises by one per moment-form assembly and the profiler
+    sees at most two kernel launches in one; the Jacobian form stays on the
+    plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    from nautilus_tpu_torch.kernels.band_moments import band_moments
+    from nautilus_tpu_torch.solve import factors
+    x, graph, layout = _moments_graph(dev, torch.float32,
+                                      *MOMENT_CASES["lgrc2019"])
+    before = band_moments.launches
+    factors._accumulate_banded(x, graph, layout)
+    assert band_moments.launches == before + 1
+    factors.assemble_banded_system(x[:layout.n], graph, layout)
+    assert band_moments.launches == before + 2
+    factors.assemble_banded_system(x[:layout.n], graph, layout, True)
+    factors._accumulate_banded(x, graph, layout, True)
+    assert band_moments.launches == before + 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        factors._accumulate_banded(x, graph, layout)
+        torch.cuda.synchronize()
+    launches = [e for e in prof.events()
+                if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                              "cuLaunchKernel")]
+    assert len(launches) <= 2
+
+
+def test_band_moments_refuse_a_batch_off_the_layout_on_card(dev):
+    from nautilus_tpu_torch.kernels.band_moments import band_moments
+    x, graph, layout = _moments_graph(dev, torch.float32, 40, 4, 20, 10, 4)
+    short = graph.planar._replace(
+        **{f: getattr(graph.planar, f)[:-1] for f in graph.planar._fields})
+    with pytest.raises(ValueError, match="pairs"):
+        band_moments(x, short, graph.edge, layout)
+    with pytest.raises(ValueError, match="src_pts"):
+        band_moments(x, graph.planar._replace(
+            src_pts=graph.planar.src_pts.double()), graph.edge, layout)
